@@ -1,7 +1,7 @@
 // rtas_runtime — native host-runtime pieces for real_time_audio_sync_tpu.
 //
 // The reference's real-time transport is PortAudio's C ring buffer polled
-// from Python (ims/audio.py:64-74).  This library provides the TPU-host
+// from Python (ims/audio.py:64-74).  This library provides the accelerator-host
 // equivalents:
 //
 //  * a lock-free single-producer/single-consumer float ring buffer for the

@@ -42,8 +42,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", default="insert", choices=["insert", "fused", "oracle"],
                     help="insert: stream frame-by-frame (reference harness regime); "
                          "fused: whole alignment through the fused device backends "
-                         "(Pallas set_live for the online engines; for wtw a corpus "
-                         "sweep batches ALL pairs into one multi-stream run)")
+                         "(the band kernel's set_live for the online engines; for wtw "
+                         "a corpus sweep batches ALL pairs into one multi-stream run)")
+    ap.add_argument("--interpret", action="store_true",
+                    help="run the band kernel in the Pallas interpreter (CPU hosts)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -68,7 +70,8 @@ def main(argv=None) -> int:
     if args.corpus:
         from real_time_audio_sync_tpu.eval.corpus import CorpusRunner
 
-        runner = CorpusRunner(args.corpus, args.engine or "livenote_v2_diff", dtype=dtype, mode=args.mode)
+        runner = CorpusRunner(args.corpus, args.engine or "livenote_v2_diff", dtype=dtype,
+                              mode=args.mode, interpret=args.interpret)
         runner.evaluate(field_log=args.field_log)
         return 0
 
@@ -76,7 +79,8 @@ def main(argv=None) -> int:
         from real_time_audio_sync_tpu.eval.corpus import ENGINES, align_pair, run_simple
 
         if args.engine:
-            result = align_pair(args.ref, args.live, args.engine, dtype=dtype, mode=args.mode)
+            result = align_pair(args.ref, args.live, args.engine, dtype=dtype, mode=args.mode,
+                                interpret=args.interpret)
             s = result.score
             for t in (1, 3, 5, 10):
                 print(f"Percent incorrect (within {t} beat{'s' if t > 1 else ''}): {s.pct_off_beats[t]} %")

@@ -1,14 +1,15 @@
-"""Chroma feature frontend, TPU-native.
+"""Chroma feature frontend on the device.
 
 Reference semantics (chroma.py): a hand-rolled hop-loop STFT — Hann window,
 centered via an ``fft_len/2`` left zero-pad (chroma.py:49), final partial
 frame truncated (chroma.py:54) — then one-sided power spectrum, chroma
 filterbank projection and per-frame L2 normalization (chroma.py:67-75).
 
-TPU redesign: no per-hop Python loop.  Framing is a reshape (hop = fft_len/2
-→ two half-frame blocks per frame), the real DFT is a dense matmul against
-precomputed cos/sin factor matrices (MXU-friendly at 4096 points — one fused
-batched matmul over all frames instead of T sequential rffts), and the
+Device redesign: no per-hop Python loop.  Framing is a reshape (hop =
+fft_len/2 → two half-frame blocks per frame), the real DFT is a dense matmul
+against precomputed cos/sin factor matrices (one batched matmul over all
+frames instead of T sequential rffts; ROADMAP S5 weighs it against
+``jnp.fft.rfft``), and the
 filterbank projection + normalization fuse into the same XLA program.  The
 whole wav→chroma pipeline is a single jitted function; the DFT/filterbank
 factors live on-device once and are passed as arguments (not baked into each
@@ -47,7 +48,7 @@ def frontend_constants(n_fft: int = FFT_LEN, fs: int = FS, dtype=np.float32):
     """(hann, dft_cos, dft_sin, filterbank_T) as device arrays.
 
     The real DFT is expressed as two (n_fft, n_fft//2+1) matmul factors so the
-    transform runs on the MXU; ``rfft(x)[k] = x·cos_k − i·(x·sin_k)``.
+    transform runs as matmuls; ``rfft(x)[k] = x·cos_k − i·(x·sin_k)``.
     Created eagerly (never inside a trace) and cached.
     """
     key = (n_fft, fs, np.dtype(dtype).name)
@@ -164,7 +165,7 @@ def host_chroma_frames(frames: np.ndarray, n_fft: int = FFT_LEN, fs: int = FS,
 
     Same pipeline as :func:`_chroma_frames_impl` (window → rDFT → power →
     filterbank → L2 normalize) with the rDFT on the host instead of the
-    device's two MXU matmuls.  Host and device differ in low-order float32
+    device's two DFT matmuls.  Host and device differ in low-order float32
     bits (~1e-6 relative) — numerically equivalent, NOT bit-identical;
     callers that need bit-parity with device-extracted features must
     extract on device.
@@ -304,15 +305,22 @@ def num_frames(n_samples: int, n_fft: int = FFT_LEN, hop: int = HOP_SIZE) -> int
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("normalize",))
-def _chroma_frames_impl(frames, win, dft_cos, dft_sin, fb_t, normalize: bool = True):
+#: Matmul precision of the frontend.  HIGHEST keeps full f32: on the GPU an
+#: f32 matmul may otherwise run in TF32 (~3 decimal digits), which moves
+#: chroma by ~1e-3 against the f64 reference (docs/PARITY.md).
+FRONTEND_PRECISION = jax.lax.Precision.HIGHEST
+
+
+@partial(jax.jit, static_argnames=("normalize", "precision"))
+def _chroma_frames_impl(frames, win, dft_cos, dft_sin, fb_t, normalize: bool = True,
+                        precision=FRONTEND_PRECISION):
     """(T, n_fft) raw frames → (12, T) chroma.  One fused XLA program:
     window → two DFT matmuls → power → filterbank matmul → L2 normalize."""
     wf = frames * win[None, :]
-    re = wf @ dft_cos
-    im = wf @ dft_sin
+    re = jnp.matmul(wf, dft_cos, precision=precision)
+    im = jnp.matmul(wf, dft_sin, precision=precision)
     power = re * re + im * im  # (T, K)
-    raw = power @ fb_t  # (T, 12)
+    raw = jnp.matmul(power, fb_t, precision=precision)  # (T, 12)
     if normalize:
         norm = jnp.sqrt(jnp.sum(raw * raw, axis=1, keepdims=True))
         tiny = jnp.asarray(np.finfo(np.dtype(frames.dtype)).tiny, frames.dtype)
@@ -340,20 +348,23 @@ def frame_span(x: jnp.ndarray, t: int, n_fft: int, hop: int) -> jnp.ndarray:
     return x[idx]
 
 
-@partial(jax.jit, static_argnames=("n_fft", "hop", "normalize"))
-def _chroma_pipeline_impl(wav, win, dft_cos, dft_sin, fb_t, n_fft: int, hop: int, normalize: bool = True):
+@partial(jax.jit, static_argnames=("n_fft", "hop", "normalize", "precision"))
+def _chroma_pipeline_impl(wav, win, dft_cos, dft_sin, fb_t, n_fft: int, hop: int, normalize: bool = True,
+                          precision=FRONTEND_PRECISION):
     t = num_frames(wav.shape[0], n_fft, hop)
     if t <= 0:
         return jnp.zeros((12, 0), wav.dtype)
     x = jnp.concatenate([jnp.zeros(n_fft // 2, wav.dtype), wav])
     frames = frame_span(x, t, n_fft, hop)
-    return _chroma_frames_impl(frames, win, dft_cos, dft_sin, fb_t, normalize)
+    return _chroma_frames_impl(frames, win, dft_cos, dft_sin, fb_t, normalize, precision)
 
 
-def chroma_pipeline(wav: jnp.ndarray, n_fft: int = FFT_LEN, hop: int = HOP_SIZE, fs: int = FS, normalize: bool = True) -> jnp.ndarray:
-    """Full wav → (12, T) chroma pipeline as one jitted XLA program."""
+def chroma_pipeline(wav: jnp.ndarray, n_fft: int = FFT_LEN, hop: int = HOP_SIZE, fs: int = FS, normalize: bool = True,
+                    precision=FRONTEND_PRECISION) -> jnp.ndarray:
+    """Full wav → (12, T) chroma pipeline as one jitted XLA program
+    (``precision``: the DFT and filterbank matmuls', see FRONTEND_PRECISION)."""
     consts = frontend_constants(n_fft, fs, wav.dtype)
-    return _chroma_pipeline_impl(wav, *consts, n_fft, hop, normalize)
+    return _chroma_pipeline_impl(wav, *consts, n_fft, hop, normalize, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +396,7 @@ def chroma_from_samples(wav: np.ndarray, dtype=np.float32, normalize: bool = Tru
     ``bucket=True`` zero-pads the wav to the next power-of-two length before
     the jitted pipeline and slices the result back to the true frame count,
     so a corpus sweep compiles one program per length *bucket* instead of one
-    per file (each fresh shape costs a 20-60 s remote compile on the target
-    platform).  Exact: every true frame lies entirely within the original
+    per file (each fresh shape costs a compile).  Exact: every true frame lies entirely within the original
     (left-padded) signal — trailing pad zeros only produce extra frames,
     which are sliced off before return."""
     wav_np = np.asarray(wav)
@@ -436,8 +446,8 @@ def create_stft(wav: np.ndarray, dtype=np.float32) -> np.ndarray:
     idx = np.arange(t)[:, None] * HOP_SIZE + np.arange(FFT_LEN)[None, :]
     frames = jnp.asarray(x[idx])
     wf = frames * win[None, :]
-    re = np.asarray(wf @ dft_cos)
-    im = np.asarray(wf @ dft_sin)
+    re = np.asarray(jnp.matmul(wf, dft_cos, precision=FRONTEND_PRECISION))
+    im = np.asarray(jnp.matmul(wf, dft_sin, precision=FRONTEND_PRECISION))
     return (re - 1j * im).T  # (K, T)
 
 
@@ -446,7 +456,7 @@ def create_chroma(ft: np.ndarray, normalize: bool = True, dtype=np.float32) -> n
     power → filterbank projection → optional per-frame L2 normalization."""
     spec = jnp.asarray(np.abs(np.asarray(ft)) ** 2, dtype)
     _, _, _, fb_t = frontend_constants(FFT_LEN, FS, dtype)
-    raw = (spec.T @ fb_t).T  # (12, T)
+    raw = jnp.matmul(spec.T, fb_t, precision=FRONTEND_PRECISION).T  # (12, T)
     if not normalize:
         return np.asarray(raw)
     norm = jnp.sqrt(jnp.sum(raw * raw, axis=0, keepdims=True))

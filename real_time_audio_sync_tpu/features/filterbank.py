@@ -6,7 +6,7 @@ filterbank is the classic Dan Ellis *chromafb* construction: place a wrapped
 Gaussian on the chromatic pitch-class axis for every FFT bin, L2-normalize
 per FFT bin, apply a Gaussian octave-weighting envelope centred on octave 5,
 and rotate so row 0 is pitch-class C.  We re-derive it here from that
-published formulation so the TPU frontend carries no librosa dependency;
+published formulation so the device frontend carries no librosa dependency;
 numerical parity with the reference is exercised end-to-end by the
 beat-accuracy tests on the in-repo Chopin recordings.
 """

@@ -13,7 +13,6 @@ from real_time_audio_sync_tpu.models.wtw import WTW  # noqa: F401
 _LAZY = {
     "FusedStreamingEngine": "real_time_audio_sync_tpu.models.fused_streaming",
     "AsyncWTW": "real_time_audio_sync_tpu.models.wtw_async",
-    "FusedWTW": "real_time_audio_sync_tpu.models.fused_wtw",
 }
 
 

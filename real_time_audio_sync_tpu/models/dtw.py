@@ -5,7 +5,7 @@ feature matrices, cosine cost ``1 − AᵀB``, 3-step recurrence with the
 diagonal weighted 2×, first-min tie-breaking (left, up, diag), backtracking
 from (M−1, N−1).
 
-TPU redesign: the cost matrix is one MXU matmul; the O(M·N) Python DP loop
+Device redesign: the cost matrix is one matmul; the O(M·N) Python DP loop
 becomes a `lax.scan` wavefront over anti-diagonals and the backtrack a second
 scan (see ops/wavefront.py) — the whole call is two jitted programs instead
 of ~M·N interpreter iterations.
@@ -22,59 +22,20 @@ from real_time_audio_sync_tpu.ops.wavefront import DTW_SPEC, backtrack, wavefron
 
 @jax.jit
 def _cosine_cost(seq_a, seq_b):
-    # Precision.HIGHEST: exact-f32 MXU path.  The default single-pass
-    # matmul truncates inputs to bf16 on TPU (~1e-3 cost error), which
-    # diverges the DP from the f64 reference recurrence and makes two
-    # differently-shaped cost programs (dense vs banded) disagree with
-    # each other (observed: 413/657 path points on the Chopin pair).
-    # Identical on CPU, where f32 matmuls are exact.
+    # Precision.HIGHEST: full f32.  A lower precision (TF32 on the GPU)
+    # moves costs by ~1e-3, which diverges the DP from the f64 reference
+    # recurrence and makes two differently-shaped cost programs (dense vs
+    # banded) disagree with each other.
     return 1.0 - jnp.matmul(seq_a.T, seq_b,
                             precision=jax.lax.Precision.HIGHEST)
 
 
-def _use_pallas(backend: str, dtype) -> bool:
-    from real_time_audio_sync_tpu.ops.pallas_wavefront import pallas_wavefront_supported
-
-    if backend == "pallas":
-        # fail up front with the platform/dtype reason instead of an opaque
-        # Mosaic lowering error (AsyncWTW's window_backend does the same)
-        if not pallas_wavefront_supported(None, dtype):
-            raise ValueError(
-                f"backend='pallas' unsupported on this platform/dtype "
-                f"({jax.devices()[0].platform}, {np.dtype(dtype)}); use "
-                f"backend='scan' or 'auto'")
-        return True
-    if backend == "scan":
-        return False
-    if backend != "auto":
-        raise ValueError(f"unknown backend {backend!r}; choose 'auto', 'scan' or 'pallas'")
-    # auto: the fused kernel targets real TPUs and f32 (the production
-    # dtype); CPU and f64 parity runs use the scan
-    return pallas_wavefront_supported(None, dtype)
-
-
-def dtw_device(seq_a, seq_b, backend: str = "auto"):
+def dtw_device(seq_a, seq_b):
     """Device-resident DTW: returns (cost, acc, path_points, path_len) as
-    jax arrays; ``path_points`` is reversed (end → origin) and padded.
-
-    ``backend``: "auto" (Pallas kernel on TPU/f32, lax.scan otherwise),
-    "scan", or "pallas" — both produce bit-identical acc/back matrices."""
+    jax arrays; ``path_points`` is reversed (end → origin) and padded."""
     cost = _cosine_cost(seq_a, seq_b)
-    if _use_pallas(backend, cost.dtype):
-        from real_time_audio_sync_tpu.ops.pallas_wavefront import (
-            backtrack_pallas,
-            backtrack_pallas_supported,
-            wavefront_dp_pallas,
-        )
-
-        acc, back = wavefront_dp_pallas(cost, DTW_SPEC)
-        if backtrack_pallas_supported(back.shape):
-            points, length = backtrack_pallas(back, DTW_SPEC)
-        else:  # beyond the VMEM budget: scan backtrack handles any size
-            points, length = backtrack(back, DTW_SPEC)
-    else:
-        acc, back = wavefront_dp(cost, DTW_SPEC)
-        points, length = backtrack(back, DTW_SPEC)
+    acc, back = wavefront_dp(cost, DTW_SPEC)
+    points, length = backtrack(back, DTW_SPEC)
     return cost, acc, points, length
 
 
@@ -146,8 +107,7 @@ def dtw_auto(seq_a, seq_b, band: int | None = None, max_widenings: int = 6):
         f"{max_widenings} widenings; pass an explicit larger `band`")
 
 
-def DTW(seq_a, seq_b, dtype=None, backend: str = "auto",
-        max_dense_bytes=None):
+def DTW(seq_a, seq_b, dtype=None, max_dense_bytes=None):
     """Reference-parity offline DTW.
 
     Accepts (F, M) and (F, N) numpy/jax arrays, returns numpy
@@ -157,7 +117,7 @@ def DTW(seq_a, seq_b, dtype=None, backend: str = "auto",
     At scales where the dense matrices exceed ``max_dense_bytes`` (default
     2 GiB; env RTAS_DTW_DENSE_LIMIT_BYTES) the call auto-delegates to the
     banded engine with widen-and-retry exactness (:func:`dtw_auto`) —
-    mirroring the online engines' ``long_ref`` auto-engage.  The dense
+    the banded counterpart of the dense wavefront.  The dense
     ``cost``/``acc`` matrices are exactly what cannot exist at that scale
     (~12 GB/hour-pair; the reference's f64 ones would be ~24 TB), so the
     delegated call returns ``(None, None, path)`` with a warning; the path
@@ -180,7 +140,7 @@ def DTW(seq_a, seq_b, dtype=None, backend: str = "auto",
             "widen-and-retry)")
         path, _, _ = dtw_auto(seq_a, seq_b)
         return None, None, path
-    cost, acc, points, length = dtw_device(jnp.asarray(seq_a), jnp.asarray(seq_b), backend)
+    cost, acc, points, length = dtw_device(jnp.asarray(seq_a), jnp.asarray(seq_b))
     n_valid = int(length)
     path = np.asarray(points)[:n_valid][::-1]
     return np.asarray(cost), np.asarray(acc), path

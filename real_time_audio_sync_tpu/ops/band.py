@@ -5,7 +5,7 @@ Python: a width-``c`` row band per live frame (otw_eran.py:58-62), a
 width-``c`` column band per reference advance (otw_eran.py:73-77), and band
 argmins for the best point (otw_eran.py:192-211).
 
-TPU reformulation (SURVEY.md §7 "align/otw.py"): each band update becomes a
+Device reformulation (SURVEY.md §7 "align/otw.py"): each band update becomes a
 fixed-shape vectorized computation against the full accumulated-cost matrix —
 one matvec for the cell costs, one vectorized min for the up/diagonal
 candidates, and a length-``c`` min-plus chain for the within-band left/up
@@ -35,11 +35,14 @@ def _cost_vector(query: jnp.ndarray, bank: jnp.ndarray, euclidean: bool) -> jnp.
 
     cosine (otw_eran.py:220, livenote.py:161): ``1 − q·bank``
     euclidean (livenote_v2.py:167-168): ``sqrt(Σ (q − bank)²)``
+
+    HIGHEST: full f32 — a TF32 product would move costs by ~1e-3 and flip
+    path decisions against the f64 reference.
     """
     if euclidean:
         d = bank - query[:, None]
         return jnp.sqrt(jnp.sum(d * d, axis=0))
-    return 1.0 - query @ bank
+    return 1.0 - jnp.matmul(query, bank, precision=lax.Precision.HIGHEST)
 
 
 def _shift_fill_inf(v: jnp.ndarray) -> jnp.ndarray:
@@ -54,11 +57,10 @@ def _minplus_chain(b_win: jnp.ndarray, c_win: jnp.ndarray, r_init: jnp.ndarray, 
     ``exact=False`` (default runtime path): the recurrence is an associative
     min-plus composition — element ``(c_k, b_k)`` composes as
     ``(c₁,b₁)⊕(c₂,b₂) = (c₁+c₂, min(b₁+c₂, b₂))`` — so it runs as a
-    log-depth ``lax.associative_scan`` of pure vector ops.  On the target TPU
-    platform every scalar⇄vector boundary crossing (per-element scan input
-    slicing) costs ~0.5 ms, so the O(c) sequential form would dominate insert
-    latency; the tree form reassociates the cost sums, which can differ from
-    the reference by ~1 ulp (observed path-identical on real and random data).
+    log-depth ``lax.associative_scan`` of pure vector ops, where the O(c)
+    sequential form would be c dependent steps; the tree form reassociates
+    the cost sums, which can differ from the reference by ~1 ulp (observed
+    path-identical on real and random data).
 
     ``exact=True``: the reference's left-to-right evaluation order,
     bit-identical accumulated costs; used by the CPU parity tests.
@@ -172,7 +174,7 @@ def eval_cell(acc, live, ref, x, y, *, euclidean: bool):
         d = live_x - ref_y
         cost = jnp.sqrt(jnp.sum(d * d)).astype(dtype)
     else:
-        cost = (1.0 - live_x @ ref_y).astype(dtype)
+        cost = (1.0 - jnp.matmul(live_x, ref_y, precision=lax.Precision.HIGHEST)).astype(dtype)
 
     inf = jnp.asarray(jnp.inf, dtype)
     # dynamic_slice clamps negative starts to 0; the masks discard those reads

@@ -1,9 +1,9 @@
 """Banded offline DTW — hour-scale full-pair alignment in O(M·band) memory.
 
-The dense wavefront (ops/wavefront.py, ops/pallas_wavefront.py) materializes
+The dense wavefront (ops/wavefront.py) materializes
 O(M·N) acc+back matrices: exact reference parity (dtw.py:5-53), but two
-hour-long recordings (M ≈ N ≈ 39k frames) need ~12 GB — beyond both the
-chip and any host the reference could run on (its dense f64 matrices would
+hour-long recordings (M ≈ N ≈ 39k frames) need ~12 GB — a large share of
+the device and beyond any host the reference could run on (its dense f64 matrices would
 be ~24 TB).  This module restricts the DP to a Sakoe-Chiba-style band of
 ``band`` reference frames around the resampled main diagonal — the same
 banded-locality assumption the online engines already make (SURVEY.md §5.7:
@@ -70,9 +70,9 @@ def _banded_dp(seq_a, seq_b, band: int):
         delta = off - prev_off
         ref_win = lax.dynamic_slice(seq_b, (jnp.int32(0), off), (f, w))
         live_i = lax.dynamic_slice(seq_a, (jnp.int32(0), i), (f, 1))[:, 0]
-        # (W,) cosine cost (dtw.py:11); Precision.HIGHEST = exact f32 so
-        # the banded DP agrees with the dense engine's cost on TPU (the
-        # default bf16-truncating path differs per program shape —
+        # (W,) cosine cost (dtw.py:11); Precision.HIGHEST = full f32 so
+        # the banded DP agrees with the dense engine's cost (a reduced-
+        # precision path differs per program shape —
         # models/dtw._cosine_cost rationale)
         cost = 1.0 - jnp.matmul(live_i, ref_win,
                                 precision=jax.lax.Precision.HIGHEST)

@@ -1,10 +1,10 @@
 """Anti-diagonal wavefront dynamic programming for DTW-family recurrences.
 
 The reference computes its accumulated-cost matrices with O(M·N) pure-Python
-double loops (dtw.py:32-40, wtw.py:201-215).  On TPU the same recurrence is
+double loops (dtw.py:32-40, wtw.py:201-215).  On the device the same recurrence is
 reformulated as a `lax.scan` over the M+N−1 anti-diagonals: every cell of a
 diagonal depends only on the two previous diagonals, so each scan step is one
-fully vectorized VPU update of up to min(M, N) cells — no data-dependent
+fully vectorized update of up to min(M, N) cells — no data-dependent
 control flow, static shapes throughout.  (The same wavefront decomposition —
 with the two-previous-diagonals linear-memory property — is the basis of
 exact parallelizable DTW in Tralie & Dempsey, "Exact, Parallelizable Dynamic
@@ -90,8 +90,8 @@ def wavefront_dp(cost: jnp.ndarray, spec: StepSpec = DTW_SPEC, unroll: bool = Fa
 
     ``unroll=True`` traces the M+N−1 diagonal updates as straight-line code
     instead of a ``lax.scan`` — identical results; for small windows (WTW's
-    w×w) this removes the TPU's per-loop-iteration overhead (~10-20 µs per
-    boundary), which dominates the tiny per-diagonal vector work.
+    w×w) this removes the per-loop-iteration overhead, which can dominate
+    the tiny per-diagonal vector work.
     """
     m, n = cost.shape
     dtype = cost.dtype

@@ -9,6 +9,5 @@ from real_time_audio_sync_tpu.parallel.serving import (  # noqa: F401
     MultiStreamFollower,
 )
 from real_time_audio_sync_tpu.parallel.wtw_serving import (  # noqa: F401
-    FusedMultiStreamWTW,
     MultiStreamWTW,
 )

@@ -1,7 +1,7 @@
-"""Multi-chip corpus alignment.
+"""Multi-device corpus alignment.
 
 The reference is strictly single-process (SURVEY.md §2 disclosure); the
-natural TPU scaling axes for this workload are:
+natural device scaling axes for this workload are:
 
 - **data parallelism over song pairs** — alignment of different pairs is
   embarrassingly parallel; pairs are padded to a common shape, vmapped, and
@@ -13,7 +13,7 @@ natural TPU scaling axes for this workload are:
   gather when a replicated chromagram is requested.
 
 Collectives appear only in metric reductions (a mean over the sharded batch
-→ one all-reduce over ICI).
+→ one all-reduce across devices).
 """
 
 from __future__ import annotations
@@ -104,19 +104,20 @@ def batched_set_live(
     monotone_path: bool = False,
     euclidean: bool = False,
     backend: str = "banded",
+    interpret: bool = False,
 ) -> Tuple[List[np.ndarray], jnp.ndarray]:
     """Align a batch of pairs with the online engine, optionally sharded over
     a ``data`` mesh.  Returns (list of per-pair paths, mean path length).
 
-    ``backend="banded"`` (default): the fused Pallas set_live kernel, a 1-D
-    grid over pairs with one O(c²) window scratch per pair — memory is flat
-    in sequence length, so hour-long pairs and large B fit one chip
-    (SURVEY.md §7 hard part 5).  Requires float32 (runs in the Pallas
-    interpreter on CPU).  ``backend="dense"``: the round-2 vmapped XLA scan
-    carrying the reference-shaped dense (2N, N) acc per pair — the debug
-    artifact whose ``acc_cost`` heatmaps notebooks use, and the float64
-    parity path; O(B·N²) memory caps it at toy scale.  Committed paths are
-    identical (tested).
+    ``backend="banded"`` (default): the band kernel (ops/pallas_otw.py), one
+    program per pair with O(c) state — memory is flat in sequence length,
+    so hour-long pairs and large B fit one device (SURVEY.md §7 hard part
+    5).  float32 only; it compiles for the GPU, or runs in the Pallas
+    interpreter with ``interpret=True``.  ``backend="dense"``: the vmapped
+    XLA scan carrying the reference-shaped dense (2N, N) acc per pair — the
+    debug artifact whose ``acc_cost`` heatmaps notebooks use, and the
+    float64 parity path; O(B·N²) memory caps it at small scale.  Committed
+    paths are identical (tested).
     """
     from real_time_audio_sync_tpu.config import OTWParams
 
@@ -132,11 +133,9 @@ def batched_set_live(
     if backend not in ("banded", "dense"):
         raise ValueError(f"unknown backend {backend!r}; choose 'banded' or 'dense'")
     if backend == "banded" and np.dtype(dtype) == np.float32:
-        return _banded_batched_set_live(refs, lives, ref_lens, live_lens, cfg, mesh)
-    if backend == "banded":
-        # float64 has no Pallas path; fall through to the dense scan (the
-        # declared parity/debug regime for f64 tests)
-        pass
+        return _banded_batched_set_live(refs, lives, ref_lens, live_lens, cfg, mesh, interpret)
+    # float64 has no kernel path: the dense scan is the declared parity and
+    # debug regime for f64
     b, f, n = refs.shape
     states = _init_batched_state(b, f, n, cfg, dtype)
 
@@ -161,107 +160,60 @@ def batched_set_live(
     return paths, mean_path_len
 
 
-def _banded_batched_set_live(refs, lives, ref_lens, live_lens, cfg, mesh):
-    """Banded backend of :func:`batched_set_live`: one Pallas launch per
-    shard, grid over pairs.  On a mesh the pair axis is sharded via
+def _banded_batched_set_live(refs, lives, ref_lens, live_lens, cfg, mesh, interpret):
+    """Banded backend of :func:`batched_set_live`: one kernel launch per
+    shard, one program per pair.  On a mesh the pair axis is sharded via
     shard_map (zero collectives in the alignment; the mean-path-length
-    metric is the one cross-chip all-reduce, SURVEY.md §5.8)."""
-    import contextlib
-
-    from jax.experimental.pallas import tpu as pltpu
-
+    metric is the one cross-device all-reduce, SURVEY.md §5.8)."""
+    from real_time_audio_sync_tpu.ops import require_kernel_platform
     from real_time_audio_sync_tpu.ops.pallas_otw import (
-        _LANES,
-        _SUBLANES,
-        _pallas_batched_set_live,
-        _round_up,
+        S_PLEN,
+        band_insert_block,
+        batched_set_live_arrays,
     )
 
-    interpret = jax.devices()[0].platform == "cpu"
-    ctx = pltpu.force_tpu_interpret_mode() if interpret else contextlib.nullcontext()
-
+    require_kernel_platform(interpret)
     refs = np.asarray(refs, np.float32)
     lives = np.asarray(lives, np.float32)
-    b, f, n_max = refs.shape
-    t_max = lives.shape[2]
-    c = cfg.c
+    b = refs.shape[0]
+    lens, ref_arr, cols, state = batched_set_live_arrays(
+        [refs[i, :, : int(ref_lens[i])] for i in range(b)],
+        [lives[i, :, : int(live_lens[i])] for i in range(b)], cfg)
 
-    from real_time_audio_sync_tpu.ops.pallas_otw import _SET_LIVE_LONG_N
+    def run(lens, ref_arr, cols, *state):
+        return band_insert_block(lens, ref_arr, cols, *state, cfg=cfg, interpret=interpret)
 
-    if n_max + t_max >= _SET_LIVE_LONG_N:
-        # the whole-sequence kernel's VMEM/SMEM buffers scale with the
-        # PADDED lengths and blow the budget at hour scale — delegate the
-        # batch (trimmed to TRUE lengths) to pallas_batched_set_live, which
-        # owns the long-regime routing: short-after-trim batches go back to
-        # the single-launch kernel, genuinely long pairs run the O(c)-VMEM
-        # long-reference engine per pair.
-        import warnings
-
-        from real_time_audio_sync_tpu.ops.pallas_otw import pallas_batched_set_live
-
-        if mesh is not None:
-            from real_time_audio_sync_tpu.parallel.serving import require_batch_divisible
-
-            require_batch_divisible(mesh, b)
-            warnings.warn(
-                "hour-scale pairs run the long-reference engine sequentially "
-                "on the default device; the mesh's pair-axis sharding applies "
-                "only to the single-launch kernel regime", stacklevel=3)
-        params = {"c": cfg.c, "max_run_count": cfg.max_run_count}
-        out = pallas_batched_set_live(
-            [refs[i, :, : int(ref_lens[i])] for i in range(b)],
-            [lives[i, :, : int(live_lens[i])] for i in range(b)],
-            params, monotone_path=cfg.monotone_path, euclidean=cfg.euclidean,
-            sentinel=cfg.sentinel, run_count_init=cfg.run_count_init,
-            interpret=interpret,
+    if mesh is None:
+        _, _, sc, path, _ = run(lens, ref_arr, cols, *state)
+        mean_path_len = jnp.mean(sc[:, S_PLEN].astype(jnp.float32))
+    else:
+        from real_time_audio_sync_tpu.parallel.serving import (
+            batch_axis_sharding_put,
+            require_batch_divisible,
         )
-        paths = [o[0] for o in out]
-        return paths, jnp.asarray(float(np.mean([len(p) for p in paths])))
-    ref_t = np.zeros((b, _round_up(c + n_max + _round_up(c + 1, _LANES) + 8, _SUBLANES), _LANES), np.float32)
-    live_t = np.zeros((b, _round_up(c + t_max + _round_up(c + 1, _SUBLANES) + 8, _SUBLANES), _LANES), np.float32)
-    lens = np.zeros((b, 1, 2), np.int32)
-    for i in range(b):
-        ref_t[i, c : c + n_max, :f] = refs[i].T
-        live_t[i, c : c + t_max, :f] = lives[i].T
-        lens[i, 0] = (live_lens[i], ref_lens[i])
-    n_steps = t_max + n_max
 
-    with ctx:
-        if mesh is None:
-            px, py, scalars = _pallas_batched_set_live(
-                jnp.asarray(ref_t), jnp.asarray(live_t), jnp.asarray(lens),
-                cfg, n_steps,
-            )
-            mean_path_len = jnp.mean(scalars[:, 0, 0].astype(jnp.float32))
-        else:
-            from real_time_audio_sync_tpu.parallel.serving import require_batch_divisible
+        require_batch_divisible(mesh, b)
+        batched = P(tuple(mesh.axis_names))
+        shared = ref_arr.shape[0] == 1
+        ref_spec = P(None, None, None) if shared else batched
+        inner = jax.jit(jax.shard_map(
+            run, mesh=mesh,
+            in_specs=(batched, ref_spec, batched) + (batched,) * len(state),
+            out_specs=(batched,) * (len(state) + 1), check_vma=False,
+        ))
+        put = batch_axis_sharding_put(mesh)
+        ref_dev = (jax.device_put(ref_arr, NamedSharding(mesh, P(None, None, None)))
+                   if shared else put(ref_arr))
+        _, _, sc, path, _ = inner(put(lens), ref_dev, put(cols), *map(put, state))
+        # the one cross-device collective: mean committed-path length
+        mean_path_len = jax.jit(
+            lambda s: jnp.mean(s[:, S_PLEN].astype(jnp.float32)),
+            out_shardings=NamedSharding(mesh, P()),
+        )(sc)
 
-            require_batch_divisible(mesh, b)
-            axes = tuple(mesh.axis_names)
-            batched = P(axes)
-
-            def shard_fn(rt, lt, ln):
-                px, py, sc = _pallas_batched_set_live(rt, lt, ln, cfg, n_steps)
-                return px, py, sc
-
-            inner = jax.jit(jax.shard_map(
-                shard_fn, mesh=mesh, in_specs=(batched,) * 3,
-                out_specs=(batched,) * 3, check_vma=False,
-            ))
-            put = lambda x: jax.device_put(
-                x, NamedSharding(mesh, P(axes, *(None,) * (x.ndim - 1))))
-            px, py, scalars = inner(put(ref_t), put(live_t), put(lens))
-            # the one cross-chip collective: mean committed-path length
-            mean_path_len = jax.jit(
-                lambda s: jnp.mean(s[:, 0, 0].astype(jnp.float32)),
-                out_shardings=NamedSharding(mesh, P()),
-            )(scalars)
-
-    px, py, scalars = jax.device_get((px, py, scalars))
-    paths = []
-    for i in range(b):
-        plen = int(scalars[i, 0, 0])
-        paths.append(np.stack([px[i, 0, :plen], py[i, 0, :plen]], axis=1))
+    sc, path = jax.device_get((sc, path))
+    paths = [np.stack([path[i, 0, : sc[i, S_PLEN]], path[i, 1, : sc[i, S_PLEN]]], axis=1)
+             for i in range(b)]
     return paths, mean_path_len
 
 

@@ -1,9 +1,9 @@
 """Shared status-polling machinery for the batched (multi-stream) followers.
 
-Same measured platform facts as the solo engines' ``StatusPolling``
-(models/online_core.py): ``is_ready()`` is a free local flag check, while
-actually READING a status — even a completed one — is a relay round-trip, so
-reads are rate-limited and run on a single-slot background worker.  The
+Same design as the solo engines' ``StatusPolling`` (models/online_core.py):
+``is_ready()`` is a free local flag check, while actually READING a status
+— even a completed one — is a device→host copy, so reads are rate-limited
+and run on a single-slot background worker.  The
 followers' per-stream status rows are cumulative, so the newest completed
 vector subsumes everything dispatched before it.
 
@@ -68,7 +68,7 @@ class BatchedStatusPolling:
         self._probe()
         return len(self._outstanding)
 
-    # -- reads (relay round-trips, rate-limited, off-thread) -------------
+    # -- reads (device→host copies, rate-limited, off-thread) -----------
 
     def _drain_harvest(self) -> None:
         """Consume a background read that has completed (caller thread)."""
@@ -77,7 +77,7 @@ class BatchedStatusPolling:
             self._consume(fut.result())
 
     def _submit_harvest(self, done) -> None:
-        """Hand the blocking status read (a relay round-trip) to the worker
+        """Hand the blocking status read (a device→host copy) to the worker
         thread.  Callers must only pop ``_latest_done`` when no read is in
         flight — dropping it here would lose the FINAL status irrecoverably
         (stop masks / last_points never surface) when no further dispatch

@@ -67,7 +67,7 @@ class MultiStreamWTW(BatchedStatusPolling):
     stream contributes whatever it has (zero-padded to ``k_block``).  With
     heavily skewed feeds a slow stream therefore rides many small dispatches
     it would not pay solo — committed paths are unaffected (feed-skew
-    invariance is tested), but per-stream dispatch count, and thus relay
+    invariance is tested), but per-stream dispatch count, and thus dispatch
     overhead, scales with the fastest stream's cadence.  Feed streams at
     comparable rates (the serving regime) for best throughput."""
 
@@ -79,8 +79,8 @@ class MultiStreamWTW(BatchedStatusPolling):
         self.k_block = int(k_block)
         # int16 spans halve the H2D bytes that cap multi-stream aggregate
         # throughput (B x span per block); "chroma" ships host-extracted
-        # 12-dim columns instead of raw samples (~96x fewer bytes — the
-        # bandwidth ceiling remover on tunneled links); see
+        # 12-dim columns instead of raw samples (~96x fewer bytes — for
+        # bandwidth-limited links); see
         # AsyncWTW.transfer_dtype for the exactness contracts.  "auto"
         # (default) probes link bandwidth + host-FFT throughput once per
         # process and picks per the measured crossover (parallel/transfer.py)
@@ -165,10 +165,9 @@ class MultiStreamWTW(BatchedStatusPolling):
         p_cap = (n_buf // self._hop_frames + 2) * (2 * self._w - 1) + 64
 
         # mesh: shard every batched leaf along the stream axis (all mesh
-        # axes — a partial spec would silently replicate); single chip: let
-        # jit's argument-transfer path place per-block args (an explicit
-        # device_put per dispatch loses badly on relay-attached TPUs,
-        # parallel/serving.py) and device_put only the persistent state
+        # axes — a partial spec would silently replicate); single device:
+        # let jit's argument-transfer path place per-block args and
+        # device_put only the persistent state
         self.mesh = mesh
         if mesh is not None:
             require_batch_divisible(mesh, self.b)
@@ -333,284 +332,4 @@ class MultiStreamWTW(BatchedStatusPolling):
     def pointers(self) -> List[Tuple[int, int, int]]:
         sc = np.asarray(self._state[2])
         return [tuple(int(sc[i, j]) for j in (_W_CHROMA, _W_LIVE, _W_REF))
-                for i in range(self.b)]
-
-
-# ---------------------------------------------------------------------------
-# Fused-kernel multi-stream WTW (ops/pallas_wtw.py grid driver)
-# ---------------------------------------------------------------------------
-
-
-def _make_fused_multi_wtw_step(w: int, hop_frames: int, k_block: int,
-                               fft: int, hop: int, transfer: str,
-                               shared_ref: bool, interpret: bool):
-    """Jitted B-stream block step: in-program frontend (for raw-span
-    transfers) + the fused Pallas grid kernel, one dispatch total."""
-    from functools import partial as _partial
-
-    import jax.numpy as jnp
-
-    from real_time_audio_sync_tpu.features.chroma import _chroma_frames_impl, frame_span
-    from real_time_audio_sync_tpu.ops.pallas_wtw import (
-        _SUBLANES as _SUB,
-        _pallas_multi_wtw_insert_block,
-        _round_up as _ru,
-    )
-
-    k_pad = _ru(k_block, _SUB)
-
-    def step(lens, ref_hbm, payload, live_win, scalars,
-             win, dft_cos, dft_sin, fb_t):
-        if transfer == "chroma":
-            cols12 = payload  # (B, 12, k_block) host-extracted columns
-        else:
-            samples = payload
-            if transfer == "int16":
-                samples = samples.astype(win.dtype) / np.float32(32768.0).astype(win.dtype)
-            # vmapped (not flattened) frontend: the per-stream matmul batch
-            # shape stays (k_block, fft) exactly as the solo engines', so
-            # f32 chroma — and thus DP tie decisions — match solo streams
-            frames = jax.vmap(lambda x: frame_span(x, k_block, fft, hop))(samples)
-            cols12 = jax.vmap(
-                lambda fr: _chroma_frames_impl(fr, win, dft_cos, dft_sin, fb_t, True)
-            )(frames)
-        cols = jnp.transpose(cols12, (0, 2, 1)).astype(jnp.float32)  # (B, k, f)
-        cols = jnp.pad(cols, ((0, 0), (0, k_pad - cols.shape[1]), (0, 0)))
-        return _pallas_multi_wtw_insert_block(
-            lens, ref_hbm, cols, live_win, scalars,
-            w, hop_frames, k_block, shared_ref, interpret)
-
-    return _partial(jax.jit, donate_argnums=(3, 4))(step)
-
-
-class FusedMultiStreamWTW(BatchedStatusPolling):
-    """B concurrent raw-audio WTW streams on the fused Pallas kernel.
-
-    Same surface and feed-skew semantics as :class:`MultiStreamWTW`, but the
-    block step is the persistent-state Pallas grid kernel
-    (ops/pallas_wtw.py): per-stream device state is a sliding O(w + k_block)
-    live window + 16 scalars — flat in reference length AND in stream
-    count's live history — with the reference streamed from HBM (stored
-    ONCE for the shared B-listeners-one-concert shape), and committed paths
-    returned through per-launch delta rows accumulated host-side.  Stop and
-    due-window control flow runs divergently per grid step instead of as
-    whole-batch selects under vmap.
-
-    Pass ``mesh=`` to shard the stream axis over chips via ``shard_map``
-    (per-stream DP state is chip-local, zero collectives — SURVEY.md §5.8).
-    """
-
-    def __init__(self, refs: Sequence, params, k_block: int = 8,
-                 mesh: Optional[Mesh] = None, transfer_dtype: str = "auto",
-                 ref_chromas: Optional[Sequence[np.ndarray]] = None,
-                 interpret: bool = False):
-        from real_time_audio_sync_tpu.models.fused_streaming import _DELTA_STACK
-        from real_time_audio_sync_tpu.ops.pallas_wtw import (
-            _LANES,
-            _N_SCALARS,
-            _WS_CHROMA,
-            _WS_LIVE,
-            _WS_REF,
-            _round_up,
-            _SUBLANES,
-            wtw_geometry,
-        )
-
-        self._ws = (_WS_CHROMA, _WS_LIVE, _WS_REF)
-        self.params = WTWParams.from_any(params)
-        self.k_block = int(k_block)
-        self.interpret = bool(interpret)
-        # "auto" (default): probe-based crossover choice, parallel/transfer.py
-        if transfer_dtype not in ("auto", "float32", "int16", "chroma"):
-            raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
-        self.transfer_dtype = resolve_transfer_mode(
-            transfer_dtype, len(refs), self.k_block,
-            self.params.fft_len, self.params.hop_size)
-        self.dtype = np.dtype(np.float32)  # the kernel is f32-only
-        self._delta_stack = _DELTA_STACK
-
-        self.fft_len = self.params.fft_len
-        self.hop_size = self.params.hop_size
-        self._w = self.params.dtw_win_size // self.hop_size
-        self._hop_frames = self.params.dtw_hop_size // self.hop_size
-        if self._w > _LANES:
-            raise ValueError(
-                f"window of {self._w} frames exceeds the fused kernel's "
-                f"{_LANES}-lane layout; use MultiStreamWTW for larger windows")
-
-        # ref chromagram dedupe / precompute, exactly as MultiStreamWTW
-        if ref_chromas is not None:
-            if len(ref_chromas) == 1 and len(refs) > 1:
-                ref_chromas = list(ref_chromas) * len(refs)
-            if len(ref_chromas) != len(refs):
-                raise ValueError(
-                    f"ref_chromas has {len(ref_chromas)} entries for "
-                    f"{len(refs)} streams")
-            ref_chromas = [np.asarray(c, self.dtype) for c in ref_chromas]
-            memo = {id(c): c for c in ref_chromas}
-        else:
-            ref_chromas = []
-            memo = {}
-            for r in refs:
-                key = r if isinstance(r, (str, bytes)) else id(r)
-                if key in memo:
-                    ref_chromas.append(memo[key])
-                    continue
-                if isinstance(r, (str, bytes)):
-                    wav, fs = load_wav(r)
-                    assert fs == 22050
-                else:
-                    wav = np.asarray(r)
-                memo[key] = chroma_from_samples(wav, dtype=self.dtype)
-                ref_chromas.append(memo[key])
-        self.b = len(ref_chromas)
-        if self.b == 0:
-            raise ValueError("need at least one stream")
-        f = ref_chromas[0].shape[0]
-        self.f = f
-        self.ms = np.asarray([c.shape[1] for c in ref_chromas], np.int32)
-        for i, c in enumerate(ref_chromas):
-            try:
-                _check_ref_window(c.shape[1], self.params)
-            except ValueError as e:
-                raise ValueError(f"stream {i}: {e}") from None
-        m_max = int(self.ms.max())
-        self.n_caps = (2 * self.ms).astype(np.int32)
-
-        w_pad, l_win, l_pad, r_win, d_pad, maxpts = wtw_geometry(
-            self._w, self._hop_frames, self.k_block)
-        self._shared_ref = len(memo) == 1
-        n_ref_rows = 1 if self._shared_ref else self.b
-        r_rows = _round_up(m_max + r_win + 8, _SUBLANES)
-        ref_t = np.zeros((n_ref_rows, r_rows, _LANES), np.float32)
-        for i in range(n_ref_rows):
-            c = ref_chromas[i]
-            ref_t[i, : c.shape[1], :f] = c.T
-
-        self.mesh = mesh
-        if mesh is not None:
-            require_batch_divisible(mesh, self.b)
-            put = batch_axis_sharding_put(mesh)
-            rep = lambda x: jax.device_put(
-                x, NamedSharding(mesh, P(*(None,) * np.ndim(x))))
-        else:
-            put = jax.device_put
-            rep = jax.device_put
-        self._ref_dev = rep(ref_t) if self._shared_ref else put(ref_t)
-        self._live_win = put(np.zeros((self.b, l_pad, _LANES), np.float32))
-        self._scalars = put(np.zeros((self.b, 1, _N_SCALARS), np.int32))
-        self._lens_const = np.zeros((self.b, 1, 4), np.int32)
-        self._lens_const[:, 0, 0] = self.ms
-        self._lens_const[:, 0, 1] = self.n_caps
-
-        inner = _make_fused_multi_wtw_step(
-            self._w, self._hop_frames, self.k_block, self.fft_len,
-            self.hop_size, self.transfer_dtype, self._shared_ref,
-            self.interpret)
-        if mesh is None:
-            self._step = inner
-        else:
-            axes = tuple(mesh.axis_names)
-            batched = P(axes)
-            consts = P(*(None,))  # frontend constants replicated
-            ref_spec = P(None, None, None) if self._shared_ref else P(axes, None, None)
-            sharded = jax.shard_map(
-                lambda *a: inner(*a), mesh=mesh,
-                in_specs=(P(axes, None, None), ref_spec, batched, batched,
-                          P(axes, None, None), consts, P(None, None),
-                          P(None, None), P(None, None)),
-                out_specs=(batched,) * 5,
-                check_vma=False,  # pallas out_shapes carry no vma annotation
-            )
-            jitted = jax.jit(sharded, donate_argnums=(3, 4))
-            batch3 = NamedSharding(mesh, P(axes, None, None))
-            batch2 = NamedSharding(mesh, P(axes, None))
-
-            def step(lens, ref, payload, live_win, scalars, *consts_args):
-                pay_sh = batch3 if np.ndim(payload) == 3 else batch2
-                return jitted(jax.device_put(lens, batch3), ref,
-                              jax.device_put(payload, pay_sh),
-                              live_win, scalars, *consts_args)
-
-            self._step = step
-        self._frontend_consts = frontend_constants(self.fft_len, 22050,
-                                                   np.float32)
-
-        self._deltas: list = []
-        self._host_px: List[list] = [[] for _ in range(self.b)]
-        self._host_py: List[list] = [[] for _ in range(self.b)]
-        self._drained_plen = np.zeros(self.b, np.int64)
-
-        self.bufs = [SampleFIFO(self.dtype) for _ in range(self.b)]
-        self._stopped = np.zeros(self.b, bool)
-        self._span_len = (self.k_block - 1) * self.hop_size + self.fft_len
-        self._init_batched_polling()
-
-    _harvest_thread_name = "rtas-fwtw-harvest"
-
-    # payload building is identical to MultiStreamWTW
-    _avail_cols = MultiStreamWTW._avail_cols
-    _spans = MultiStreamWTW._spans
-    insert = MultiStreamWTW.insert
-    flush = MultiStreamWTW.flush
-    _poll = MultiStreamWTW._poll
-
-    def _dispatch(self, ks: np.ndarray) -> None:
-        payload = self._spans(ks)
-        lens = self._lens_const.copy()
-        lens[:, 0, 2] = ks
-        self._live_win, self._scalars, status, dx, dy = self._step(
-            lens, self._ref_dev, payload, self._live_win, self._scalars,
-            *self._frontend_consts)
-        self._deltas.append((status, dx, dy))
-        from real_time_audio_sync_tpu.models.fused_streaming import fold_delta_tail
-
-        fold_delta_tail(self._deltas, self._delta_stack)
-        self._outstanding.append(status)
-        self._poll()
-
-    def _consume(self, vec: np.ndarray) -> None:
-        vec = vec.reshape(self.b, -1)  # (B, 1, 8) row-shaped status
-        self._stopped |= (vec[:, 0] & 1).astype(bool)
-        if (vec[:, 0] & 2).any():  # pragma: no cover - design invariant
-            raise AssertionError("FusedMultiStreamWTW path delta overflow")
-
-    # -- inspection (each synchronizes) ---------------------------------
-    @property
-    def stopped(self) -> np.ndarray:
-        self._poll(block=True)
-        return self._stopped.copy()
-
-    def _drain_deltas(self) -> None:
-        from real_time_audio_sync_tpu.models.fused_streaming import iter_delta_rows
-
-        for rows in iter_delta_rows(self._deltas):
-            rows = rows.reshape(rows.shape[0], self.b, -1)  # (M, B, 8+2·d_pad)
-            d_pad = (rows.shape[-1] - 8) // 2
-            plens = rows[:, :, 1].astype(np.int64)  # (M, B), monotone per stream
-            for i in range(self.b):
-                prev = int(self._drained_plen[i])
-                n_new = np.diff(plens[:, i], prepend=prev)
-                for m in np.nonzero(n_new > 0)[0]:
-                    k = int(n_new[m])
-                    self._host_px[i].append(rows[m, i, 8 : 8 + k].astype(np.int32))
-                    self._host_py[i].append(
-                        rows[m, i, 8 + d_pad : 8 + d_pad + k].astype(np.int32))
-                self._drained_plen[i] = max(prev, int(plens[-1, i]))
-
-    def paths(self) -> List[List[tuple]]:
-        self._drain_deltas()
-        out = []
-        for i in range(self.b):
-            if self._host_px[i]:
-                px = np.concatenate(self._host_px[i])
-                py = np.concatenate(self._host_py[i])
-                out.append(list(zip(px.tolist(), py.tolist())))
-            else:
-                out.append([])
-        return out
-
-    def pointers(self) -> List[Tuple[int, int, int]]:
-        sc = np.asarray(self._scalars)
-        return [tuple(int(sc[i, 0, j]) for j in self._ws)
                 for i in range(self.b)]

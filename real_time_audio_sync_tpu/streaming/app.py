@@ -4,7 +4,7 @@ print the on-screen state (beat, rehearsal label, input level), and write the
 field-test log on stop.
 
 The reference apps are Kivy/OpenGL GUIs (C8/C10/C11/C12 in SURVEY.md §2);
-on a TPU host the equivalent runtime surface is this terminal app plus the
+on an accelerator host the equivalent runtime surface is this terminal app plus the
 same record/replay log format.
 """
 

@@ -5,7 +5,7 @@ the reference) holding output/input device indices, buffer size and sample
 rate, with the reference's defaults (buffersize 512, samplerate 44100 —
 ims/audio.py:162-166) and device-index validation against the enumerated
 devices.  Device enumeration degrades gracefully when no audio backend is
-installed (this is a TPU host; SimulatedMic needs no devices).
+installed (e.g. a headless accelerator host; SimulatedMic needs no devices).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Frame sources: where live audio comes from.
 
 The reference reads a PyAudio duplex stream polled per UI frame
-(ims/audio.py:64-74) — unavailable (and unnecessary) on a TPU host.  Three
+(ims/audio.py:64-74) — unavailable (and unnecessary) on a headless accelerator host.  Three
 sources cover its roles:
 
 - :class:`WavChunkSource` — the offline harness's streaming emulation:

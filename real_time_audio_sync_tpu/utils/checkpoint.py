@@ -78,36 +78,32 @@ def load_state(engine: BandedOnlineEngine, path: str) -> None:
     )
 
 
+_FUSED_FIELDS = ("hist", "vec", "scalars", "path")
+
+
 def save_fused_state(engine, path: str) -> None:
-    """Snapshot a FusedStreamingEngine (window, live features, path,
-    scalars — models/fused_streaming.py) to ``path`` (.npz).  Long-reference
-    engines (``engine.long_ref``) snapshot the sliding live window plus the
-    host-accumulated path instead of device-resident path buffers (the
-    pending delta launches are drained first).  Flushes first in BOTH modes:
-    feed()'s coalesce queue may hold undispatched columns, which a snapshot
-    of the device state alone would silently lose."""
+    """Snapshot a FusedStreamingEngine (live ring, band vectors, scalars,
+    committed path — models/fused_streaming.py) to ``path`` (.npz).
+    Flushes first: feed()'s coalesce queue may hold undispatched columns,
+    which a snapshot of the device state alone would silently lose."""
     engine.flush()
-    if getattr(engine, "long_ref", False):
-        p = engine.path_array  # drains pending deltas
-        w, live_win, sc = (np.asarray(x) for x in engine._state)
-        np.savez_compressed(
-            path, ref_t=np.asarray(engine.ref_t), w=w, live_win=live_win,
-            scalars=sc, host_path=p, long_ref=np.int32(1),
-            stopped=np.int32(engine._stopped_cached),
-            c=np.int32(engine.cfg.c),
-            max_run_count=np.int32(engine.cfg.max_run_count),
-            k_block=np.int32(engine.k_block),
-        )
-        return
-    w, live_t, px, py, sc = np.asarray(engine._state[0]), *map(np.asarray, engine._state[1:])
+    arrays = dict(zip(_FUSED_FIELDS, (np.asarray(x) for x in engine._state)))
     np.savez_compressed(
-        path, ref_t=np.asarray(engine.ref_t), w=w, live_t=live_t,
-        path_x=px, path_y=py, scalars=sc,
+        path, ref_t=np.asarray(engine.ref_t),
         stopped=np.int32(engine._stopped_cached),
         c=np.int32(engine.cfg.c),
         max_run_count=np.int32(engine.cfg.max_run_count),
-        k_block=np.int32(engine.k_block),
+        k_block=np.int32(engine.k_block), **arrays,
     )
+
+
+def _check_fused_fields(data, state) -> None:
+    for name, cur in zip(_FUSED_FIELDS, state):
+        if name not in data.files:
+            raise ValueError(f"checkpoint has no {name!r} field (not a band-kernel snapshot)")
+        if data[name].shape != cur.shape:
+            raise ValueError(
+                f"checkpoint field {name!r} has shape {data[name].shape}, engine expects {cur.shape}")
 
 
 def load_fused_state(engine, path: str) -> None:
@@ -116,9 +112,6 @@ def load_fused_state(engine, path: str) -> None:
     import jax.numpy as jnp
 
     data = np.load(path)
-    ck_long = bool(int(data["long_ref"])) if "long_ref" in data.files else False
-    if ck_long != bool(getattr(engine, "long_ref", False)):
-        raise ValueError("checkpoint and engine disagree on long_ref mode")
     if data["ref_t"].shape != engine.ref_t.shape or not np.array_equal(
         data["ref_t"], np.asarray(engine.ref_t)
     ):
@@ -126,28 +119,8 @@ def load_fused_state(engine, path: str) -> None:
     _check_params(data, ("c", engine.cfg.c),
                   ("max_run_count", engine.cfg.max_run_count),
                   ("k_block", engine.k_block))
-    if getattr(engine, "long_ref", False):
-        for name, cur in zip(("w", "live_win", "scalars"), engine._state):
-            if data[name].shape != cur.shape:
-                raise ValueError(f"checkpoint field {name!r} has shape {data[name].shape}, engine expects {cur.shape}")
-        engine._state = jax.device_put(
-            tuple(jnp.asarray(data[n]) for n in ("w", "live_win", "scalars"))
-        )
-        p = data["host_path"]
-        engine._deltas.clear()
-        engine._host_px = [p[:, 0].astype(np.int32)] if len(p) else []
-        engine._host_py = [p[:, 1].astype(np.int32)] if len(p) else []
-        engine._drained_plen = len(p)
-        _reset_polling(engine)
-        engine._pending.clear()  # queued feed() columns predate the restore
-        engine._stopped_cached = bool(int(data["stopped"]))
-        return
-    for name, cur in zip(("w", "live_t", "path_x", "path_y", "scalars"), engine._state):
-        if data[name].shape != cur.shape:
-            raise ValueError(f"checkpoint field {name!r} has shape {data[name].shape}, engine expects {cur.shape}")
-    engine._state = jax.device_put(
-        tuple(jnp.asarray(data[n]) for n in ("w", "live_t", "path_x", "path_y", "scalars"))
-    )
+    _check_fused_fields(data, engine._state)
+    engine._state = jax.device_put(tuple(jnp.asarray(data[n]) for n in _FUSED_FIELDS))
     _reset_polling(engine)
     engine._pending.clear()  # queued feed() columns predate the restore
     engine._stopped_cached = bool(int(data["stopped"]))
@@ -155,41 +128,20 @@ def load_fused_state(engine, path: str) -> None:
 
 def save_multi_stream_state(fms, path: str) -> None:
     """Snapshot a :class:`~real_time_audio_sync_tpu.parallel.serving.
-    FusedMultiStreamFollower` — all ``B`` streams' banded window, live
-    features, committed paths and scalar state in one ``.npz``.  Flushes
-    first (dispatches queued columns, waits for in-flight launches) so the
-    snapshot is a consistent frontier across every stream.  Long-reference
-    followers snapshot the sliding live windows plus the host-accumulated
-    per-stream paths (delta launches drained first)."""
+    FusedMultiStreamFollower` — all ``B`` streams' live rings, band vectors,
+    committed paths and scalar state in one ``.npz``.  Flushes first
+    (dispatches queued columns, waits for in-flight launches) so the
+    snapshot is a consistent frontier across every stream."""
     fms.flush()
-    if getattr(fms, "long_ref", False):
-        paths = fms.paths()  # drains pending deltas
-        w, live_win, sc = (np.asarray(x) for x in fms._state)
-        lens = np.asarray([len(p) for p in paths], np.int64)
-        cat = (np.concatenate(paths, axis=0) if len(paths) and sum(lens)
-               else np.zeros((0, 2), np.int32))
-        np.savez_compressed(
-            path,
-            ref_t=np.asarray(fms._ref_dev), w=w, live_win=live_win,
-            scalars=sc, host_paths=cat, host_path_lens=lens,
-            long_ref=np.int32(1),
-            stopped=fms._stopped.astype(np.int32),
-            last_points=np.asarray(fms._last_points, np.int64),
-            k_block=np.int32(fms.k_block),
-            c=np.int32(fms.cfg.c),
-            max_run_count=np.int32(fms.cfg.max_run_count),
-        )
-        return
-    w, live_t, px, py, sc = (np.asarray(x) for x in fms._state)
+    arrays = dict(zip(_FUSED_FIELDS, (np.asarray(x) for x in fms._state)))
     np.savez_compressed(
         path,
-        ref_t=np.asarray(fms._ref_dev), w=w, live_t=live_t,
-        path_x=px, path_y=py, scalars=sc,
+        ref_t=np.asarray(fms._ref_dev),
         stopped=fms._stopped.astype(np.int32),
         last_points=np.asarray(fms._last_points, np.int64),
         k_block=np.int32(fms.k_block),
         c=np.int32(fms.cfg.c),
-        max_run_count=np.int32(fms.cfg.max_run_count),
+        max_run_count=np.int32(fms.cfg.max_run_count), **arrays,
     )
 
 
@@ -203,9 +155,6 @@ def load_multi_stream_state(fms, path: str) -> None:
     from real_time_audio_sync_tpu.parallel.serving import batch_axis_sharding_put
 
     data = np.load(path)
-    ck_long = bool(int(data["long_ref"])) if "long_ref" in data.files else False
-    if ck_long != bool(getattr(fms, "long_ref", False)):
-        raise ValueError("checkpoint and follower disagree on long_ref mode")
     if data["ref_t"].shape != fms._ref_dev.shape or not np.array_equal(
         data["ref_t"], np.asarray(fms._ref_dev)
     ):
@@ -215,26 +164,9 @@ def load_multi_stream_state(fms, path: str) -> None:
         if int(data[field]) != want:
             raise ValueError(
                 f"checkpoint {field} {int(data[field])} != engine {field} {want}")
-    names = ("w", "live_win", "scalars") if ck_long else ("w", "live_t", "path_x", "path_y", "scalars")
-    for name, cur in zip(names, fms._state):
-        if data[name].shape != cur.shape:
-            raise ValueError(
-                f"checkpoint field {name!r} has shape {data[name].shape}, engine expects {cur.shape}")
+    _check_fused_fields(data, fms._state)
     put = batch_axis_sharding_put(fms.mesh) if fms.mesh is not None else jax.device_put
-    fms._state = tuple(put(jnp.asarray(data[n])) for n in names)
-    if ck_long:
-        cat, lens = data["host_paths"], data["host_path_lens"]
-        fms._deltas.clear()
-        fms._host_px = [[] for _ in range(fms.b)]
-        fms._host_py = [[] for _ in range(fms.b)]
-        off = 0
-        for i in range(fms.b):
-            n_i = int(lens[i])
-            if n_i:
-                fms._host_px[i].append(cat[off : off + n_i, 0].astype(np.int32))
-                fms._host_py[i].append(cat[off : off + n_i, 1].astype(np.int32))
-            off += n_i
-        fms._drained_plen = lens.astype(np.int64).copy()
+    fms._state = tuple(put(jnp.asarray(data[n])) for n in _FUSED_FIELDS)
     fms._stopped = data["stopped"].astype(bool)
     fms._last_points = data["last_points"].astype(np.int64)
     # no queued columns or in-flight work survives a restore
@@ -402,71 +334,6 @@ def load_async_wtw_state(engine, path: str) -> None:
     engine._state = tuple(
         jax.device_put(jnp.asarray(data[n])) for n in ("path_x", "path_y", "scalars")
     )
-    engine.buf = SampleFIFO.from_array(data["buf"], engine.dtype)
-    _reset_polling(engine)
-    engine._stopped_cached = bool(int(data["stopped"]))
-
-
-def save_fused_wtw_state(engine, path: str) -> None:
-    """Snapshot a FusedWTW engine (models/fused_wtw.py): the sliding VMEM
-    live window + scalar state, the host-accumulated committed path
-    (pending per-launch deltas drained first) and the host sample FIFO.
-    Flushes first so the snapshot is a consistent frontier."""
-    engine.flush()
-    p = engine.path_array  # drains pending deltas
-    np.savez_compressed(
-        path,
-        chroma_ref=engine.chroma_ref,
-        live_win=np.asarray(engine._live_win),
-        scalars=np.asarray(engine._scalars),
-        host_path=p,
-        buf=engine.buf.to_array().astype(np.float64),
-        stopped=np.int32(engine._stopped_cached),
-        k_block=np.int32(engine.k_block),
-        dtw_win_size=np.int32(engine.params.dtw_win_size),
-        dtw_hop_size=np.int32(engine.params.dtw_hop_size),
-        transfer=np.str_(engine.transfer_dtype),
-    )
-
-
-def load_fused_wtw_state(engine, path: str) -> None:
-    """Restore a snapshot into a compatibly-constructed FusedWTW engine
-    (same reference recording, params, k_block and transfer_dtype)."""
-    import jax
-    import jax.numpy as jnp
-
-    from real_time_audio_sync_tpu.models.wtw import SampleFIFO
-
-    data = np.load(path)
-    if data["chroma_ref"].shape != engine.chroma_ref.shape or not np.array_equal(
-        data["chroma_ref"], engine.chroma_ref
-    ):
-        raise ValueError("checkpoint was taken against a different reference recording")
-    if int(data["k_block"]) != engine.k_block:
-        raise ValueError(
-            f"checkpoint k_block {int(data['k_block'])} != engine k_block {engine.k_block}")
-    if str(data["transfer"]) != engine.transfer_dtype:
-        raise ValueError(
-            f"checkpoint transfer_dtype {data['transfer']} != engine "
-            f"{engine.transfer_dtype}")
-    # window geometry validation (save_async_wtw_state rationale): the
-    # sliding-window shapes depend on (w, hop_frames, k_block), but two
-    # window configs can collide on every array shape
-    _check_params(data, ("dtw_win_size", engine.params.dtw_win_size),
-                  ("dtw_hop_size", engine.params.dtw_hop_size))
-    for name, cur in (("live_win", engine._live_win),
-                      ("scalars", engine._scalars)):
-        if data[name].shape != cur.shape:
-            raise ValueError(
-                f"checkpoint field {name!r} has shape {data[name].shape}, "
-                f"engine expects {cur.shape}")
-    engine._live_win = jax.device_put(jnp.asarray(data["live_win"]))
-    engine._scalars = jax.device_put(jnp.asarray(data["scalars"]))
-    p = data["host_path"]
-    engine._deltas.clear()
-    engine._host_px = [p[:, 0].astype(np.int32)] if len(p) else []
-    engine._host_py = [p[:, 1].astype(np.int32)] if len(p) else []
-    engine._drained_plen = len(p)
     engine.buf = SampleFIFO.from_array(data["buf"], engine.dtype)
     _reset_polling(engine)
     engine._stopped_cached = bool(int(data["stopped"]))

@@ -72,7 +72,7 @@ class LatencyRecorder:
 
 def trace(log_dir: str):
     """Context manager wrapping ``jax.profiler.trace`` — captures a device
-    trace viewable in TensorBoard/Perfetto (the TPU-native replacement for
+    trace viewable in TensorBoard/Perfetto (the device-side replacement for
     the reference's wall-clock prints, SURVEY.md §5.1)."""
     import jax
 

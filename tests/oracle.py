@@ -1,7 +1,7 @@
 """Numpy test oracles: independent Python-3 implementations of the behaviors
 specified in SURVEY.md (frozen from the reference's documented semantics),
-used to verify the JAX/TPU implementations.  Written for clarity, not speed —
-these run the naive recurrences the TPU code must reproduce exactly.
+used to verify the JAX implementations.  Written for clarity, not speed —
+these run the naive recurrences the device code must reproduce exactly.
 """
 
 from __future__ import annotations
@@ -109,7 +109,23 @@ class OracleOTW:
                       optional Euclidean cost (``euclidean=True``)
     """
 
-    def __init__(self, ref, c, max_run_count, variant="otw", euclidean=False):
+    def __init__(self, ref, c, max_run_count, variant="otw", euclidean=False,
+                 follow=None, atol=0.0, rtol=0.0):
+        """``follow``/``atol``/``rtol``: check a float32 engine's path
+        without demanding that f32 resolve what f64 resolves.  Where the
+        oracle's best point and ``follow``'s point at the same decision
+        differ, the followed point is taken if it lies in the same bands and
+        its f64 accumulated cost exceeds the best one by at most
+        ``atol + rtol * |best|`` — a tie at the engine's precision; each
+        such decision's gap is recorded in ``tie_gaps``.  Any other
+        difference leaves the oracle on its own path.  Every decision
+        appends a point only without the monotone guard, so ``follow``
+        needs variant "otw" or "livenote"."""
+        if follow is not None and variant == "livenote_v2":
+            raise ValueError("follow needs one path point per decision (no monotone guard)")
+        self.follow = None if follow is None else [tuple(p) for p in np.asarray(follow)]
+        self.atol, self.rtol = atol, rtol
+        self.tie_gaps = []
         self.variant = variant
         self.euclidean = euclidean
         self.c = c
@@ -164,9 +180,18 @@ class OracleOTW:
         t1 = max(0, self.t - self.c + 1)
         best_t = t1 + int(np.argmin(self.acc[t1 : self.t + 1, self.j]))
         cost_t = self.acc[best_t, self.j]
-        if cost_j < cost_t:
-            return (self.t, best_j)
-        return (best_t, self.j)
+        best = (self.t, best_j) if cost_j < cost_t else (best_t, self.j)
+        k = len(self.path)
+        if self.follow is not None and k < len(self.follow) and self.follow[k] != best:
+            fx, fy = (int(v) for v in self.follow[k])
+            in_band = ((fx == self.t and j1 <= fy <= self.j)
+                       or (fy == self.j and t1 <= fx <= self.t))
+            low = self.acc[best]
+            gap = self.acc[fx, fy] - low if in_band else np.inf
+            if gap <= self.atol + self.rtol * abs(low):
+                self.tie_gaps.append(float(gap))
+                return (fx, fy)
+        return best
 
     def _get_direction(self):
         x, y = self._best_point()

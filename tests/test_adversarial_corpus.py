@@ -99,11 +99,12 @@ def test_corpus_runner_over_adversarial(adversarial_corpus):
 
 
 def test_fused_mode_over_adversarial_subset(adversarial_corpus):
-    """The fused (Pallas set_live) fast path scores the same regime on the
-    hard cases — dropout handled by V2's guard in fused mode too."""
+    """The fused (band-kernel set_live) fast path scores the same regime on
+    the hard cases — dropout handled by V2's guard in fused mode too (the
+    kernel in the Pallas interpreter)."""
     ref_wav, live_wav = _pair(adversarial_corpus, "dropout")
-    s = align_pair(ref_wav, live_wav, "livenote_v2", mode="fused").score
+    s = align_pair(ref_wav, live_wav, "livenote_v2", mode="fused", interpret=True).score
     assert s.pct_off_beats[1] <= 2.0
     ref_wav, live_wav = _pair(adversarial_corpus, "ramp_up")
-    s = align_pair(ref_wav, live_wav, "otw", mode="fused").score
+    s = align_pair(ref_wav, live_wav, "otw", mode="fused", interpret=True).score
     assert s.pct_off_beats[1] <= 2.0

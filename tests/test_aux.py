@@ -62,9 +62,7 @@ def test_checkpoint_resume_mid_stream(tmp_path):
 
 def test_fused_engine_checkpoint_resume(tmp_path):
     """Checkpoint/resume of the fused streaming engine's persistent device
-    state (window, live features, path, scalars)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    state (live ring, band vectors, path, scalars)."""
     from real_time_audio_sync_tpu.models.fused_streaming import FusedStreamingEngine
     from real_time_audio_sync_tpu.utils.checkpoint import load_fused_state, save_fused_state
 
@@ -73,25 +71,24 @@ def test_fused_engine_checkpoint_resume(tmp_path):
     params = {"c": 10, "max_run_count": 3}
     half = (live.shape[1] // 2 // 4) * 4  # block-aligned split
 
-    with pltpu.force_tpu_interpret_mode():
-        full = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
-        for s in range(0, live.shape[1], 4):
-            full.insert_block_nowait(live[:, s : s + 4])
-        full.flush()
+    full = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
+    for s in range(0, live.shape[1], 4):
+        full.insert_block_nowait(live[:, s : s + 4])
+    full.flush()
 
-        first = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
-        for s in range(0, half, 4):
-            first.insert_block_nowait(live[:, s : s + 4])
-        first.flush()
-        ckpt = str(tmp_path / "fused.npz")
-        save_fused_state(first, ckpt)
+    first = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
+    for s in range(0, half, 4):
+        first.insert_block_nowait(live[:, s : s + 4])
+    first.flush()
+    ckpt = str(tmp_path / "fused.npz")
+    save_fused_state(first, ckpt)
 
-        resumed = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
-        load_fused_state(resumed, ckpt)
-        for s in range(half, live.shape[1], 4):
-            resumed.insert_block_nowait(live[:, s : s + 4])
-        resumed.flush()
-        np.testing.assert_array_equal(resumed.path_array, full.path_array)
+    resumed = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
+    load_fused_state(resumed, ckpt)
+    for s in range(half, live.shape[1], 4):
+        resumed.insert_block_nowait(live[:, s : s + 4])
+    resumed.flush()
+    np.testing.assert_array_equal(resumed.path_array, full.path_array)
 
 
 def test_checkpoint_wrong_reference_rejected(tmp_path):
@@ -285,8 +282,11 @@ def test_multistream_wtw_checkpoint_resume(tmp_path):
     assert resumed.paths() == full.paths()
     assert resumed.pointers() == full.pointers()
 
+    # "auto" resolves from host timing probes: compare against a mode that
+    # differs from whatever the snapshot resolved to
+    mode = "float32" if first.transfer_dtype == "int16" else "int16"
     other = MultiStreamWTW([ref_path] * 2, WTW_PARAMS, k_block=8,
-                           dtype=np.float64, transfer_dtype="int16")
+                           dtype=np.float64, transfer_dtype=mode)
     with pytest.raises(ValueError):
         load_multi_wtw_state(other, ckpt)
 
@@ -374,25 +374,22 @@ def test_checkpoint_param_mismatch_rejected(tmp_path):
 
 
 def test_fused_checkpoint_k_block_mismatch_rejected(tmp_path):
-    """Standard-mode fused state shapes are k_block-independent, so the
-    explicit field check is what rejects a mismatched engine."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    """Fused state shapes are k_block-independent, so the explicit field
+    check is what rejects a mismatched engine."""
     from real_time_audio_sync_tpu.models.fused_streaming import FusedStreamingEngine
     from real_time_audio_sync_tpu.utils.checkpoint import load_fused_state, save_fused_state
 
     rng = np.random.default_rng(33)
     ref, live = _make_pair(rng, n_ref=24)
     params = {"c": 8, "max_run_count": 3}
-    with pltpu.force_tpu_interpret_mode():
-        a = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
-        a.insert_block_nowait(live[:, :4])
-        a.flush()
-        ckpt = str(tmp_path / "k4.npz")
-        save_fused_state(a, ckpt)
-        b = FusedStreamingEngine(ref, params, k_block=8, interpret=True)
-        with pytest.raises(ValueError, match="k_block"):
-            load_fused_state(b, ckpt)
+    a = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
+    a.insert_block_nowait(live[:, :4])
+    a.flush()
+    ckpt = str(tmp_path / "k4.npz")
+    save_fused_state(a, ckpt)
+    b = FusedStreamingEngine(ref, params, k_block=8, interpret=True)
+    with pytest.raises(ValueError, match="k_block"):
+        load_fused_state(b, ckpt)
 
 
 def test_last_point_thread_safe_drain():
@@ -430,14 +427,15 @@ def test_last_point_thread_safe_drain():
     assert not errors, errors
 
 
-def test_fused_wtw_checkpoint_resume(tmp_path):
-    """FusedWTW state (sliding live window + scalars + host path + FIFO)
-    round-trips through .npz: resuming in a fresh engine continues to the
-    identical committed path and pointers (interpret mode on CPU)."""
-    from real_time_audio_sync_tpu.models.fused_wtw import FusedWTW
+def test_async_wtw_f32_checkpoint_resume(tmp_path):
+    """float32 AsyncWTW state (the device dtype: live chromagram, path
+    buffers, scalars, host FIFO) round-trips through .npz with unaligned
+    chunking: resuming in a fresh engine continues to the identical
+    committed path and pointers; config mismatches are rejected."""
+    from real_time_audio_sync_tpu.models.wtw_async import AsyncWTW
     from real_time_audio_sync_tpu.utils.checkpoint import (
-        load_fused_wtw_state,
-        save_fused_wtw_state,
+        load_async_wtw_state,
+        save_async_wtw_state,
     )
     from real_time_audio_sync_tpu.utils.wavio import write_wav
     from tests.test_wtw import _synthetic_performance, WTW_PARAMS
@@ -449,20 +447,20 @@ def test_fused_wtw_checkpoint_resume(tmp_path):
     write_wav(ref_path, ref)
 
     chunks = np.array_split(live, 97)  # unaligned chunking
-    full = FusedWTW(ref_path, WTW_PARAMS, k_block=8, interpret=True)
+    full = AsyncWTW(ref_path, WTW_PARAMS, k_block=8)
     for buf in chunks:
         if full.insert(buf) == "stop":
             break
     full.flush()
 
     half = len(chunks) // 2
-    first = FusedWTW(ref_path, WTW_PARAMS, k_block=8, interpret=True)
+    first = AsyncWTW(ref_path, WTW_PARAMS, k_block=8)
     for buf in chunks[:half]:
         first.insert(buf)
-    ckpt = str(tmp_path / "fwtw.npz")
-    save_fused_wtw_state(first, ckpt)
-    resumed = FusedWTW(ref_path, WTW_PARAMS, k_block=8, interpret=True)
-    load_fused_wtw_state(resumed, ckpt)
+    ckpt = str(tmp_path / "awtw32.npz")
+    save_async_wtw_state(first, ckpt)
+    resumed = AsyncWTW(ref_path, WTW_PARAMS, k_block=8)
+    load_async_wtw_state(resumed, ckpt)
     for buf in chunks[half:]:
         if resumed.insert(buf) == "stop":
             break
@@ -471,77 +469,12 @@ def test_fused_wtw_checkpoint_resume(tmp_path):
     assert resumed.pointers == full.pointers
 
     # geometry / config mismatches must be rejected, not silently restored
-    other = FusedWTW(ref_path, {**WTW_PARAMS, "dtw_win_size": 4096 * 5},
-                     k_block=8, interpret=True)
+    other = AsyncWTW(ref_path, {**WTW_PARAMS, "dtw_win_size": 4096 * 5}, k_block=8)
     with pytest.raises(ValueError):
-        load_fused_wtw_state(other, ckpt)
-    kb = FusedWTW(ref_path, WTW_PARAMS, k_block=4, interpret=True)
+        load_async_wtw_state(other, ckpt)
+    kb = AsyncWTW(ref_path, WTW_PARAMS, k_block=4)
     with pytest.raises(ValueError, match="k_block"):
-        load_fused_wtw_state(kb, ckpt)
-    tr = FusedWTW(ref_path, WTW_PARAMS, k_block=8, transfer_dtype="chroma",
-                  interpret=True)
-    with pytest.raises(ValueError, match="transfer"):
-        load_fused_wtw_state(tr, ckpt)
-
-
-# ---------------------------------------------------------------------------
-# hardware-parity artifact: outage classification (round-4 verdict, item 1)
-# ---------------------------------------------------------------------------
-
-# the EXACT tail of the libtpu client/terminal version-skew traceback that
-# mis-closed round 4 as ``result: "failed"`` (HW_PARITY.json, 2026-08-19
-# 22:48 UTC) — the classifier must label it an environment outage
-_LIBTPU_SKEW_TRACEBACK = (
-    '5:22 (1768263922) cl/854318611". Client and terminal must use the same '
-    "libtpu build — different versions have different implicit flag "
-    "defaults and the AOT-compiled executable may diverge from the "
-    "terminal's runtime. (Usually means client and terminal are at different "
-    "monorepo commits, or a rolling libtpu upgrade is mid-flight.)\n"
-    "--------------------\n"
-    "For simplicity, JAX has removed its internal frames from the traceback "
-    "of the following exception. Set JAX_TRACEBACK_FILTERING=off to include "
-    "these.\n"
-)
-
-
-def test_hw_outage_classifier_libtpu_skew():
-    from tests.test_tpu_hardware import classify_environment_outage
-
-    label = classify_environment_outage(_LIBTPU_SKEW_TRACEBACK)
-    assert label is not None and "environment outage" in label
-
-
-def test_hw_outage_classifier_relay_signatures():
-    from tests.test_tpu_hardware import classify_environment_outage
-
-    for sig in (
-        "jaxlib.xla_extension.XlaRuntimeError: UNAVAILABLE: TPU backend "
-        "setup/compile error ...",
-        "grpc error: DEADLINE_EXCEEDED while compiling",
-        "failed to connect to all addresses; last error: UNKNOWN",
-        "RuntimeError: Unable to initialize backend 'tpu': could not load "
-        "libtpu.so",
-    ):
-        assert classify_environment_outage(sig) is not None, sig
-
-
-def test_hw_outage_classifier_real_failures_stay_failures():
-    from tests.test_tpu_hardware import classify_environment_outage
-
-    # genuine parity failures must NOT be laundered into outages
-    for sig in (
-        'AssertionError: fused streaming path mismatch',
-        'AssertionError: AsyncWTW pointer mismatch',
-        "ValueError: operands could not be broadcast together",
-        "",
-    ):
-        assert classify_environment_outage(sig) is None, sig
-
-
-def test_hw_check_marker_count():
-    """checks_total in HW_PARITY.json tracks the script's CHECK_OK markers."""
-    from tests.test_tpu_hardware import _SCRIPT, TOTAL_CHECKS, count_checks
-
-    assert TOTAL_CHECKS == _SCRIPT.count('print("CHECK_OK ') == 15
-    fake = "CHECK_OK a\nnoise\nCHECK_OK b\nTPU_PARITY_PASS\n"
-    assert count_checks(fake) == 2
+        load_async_wtw_state(kb, ckpt)
+    f64 = AsyncWTW(ref_path, WTW_PARAMS, k_block=8, dtype=np.float64)
+    with pytest.raises(ValueError):
+        load_async_wtw_state(f64, ckpt)

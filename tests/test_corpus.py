@@ -14,7 +14,7 @@ from real_time_audio_sync_tpu.eval.corpus import (
 REF = pathlib.Path("/root/reference")
 
 
-def test_corpus_pairing_rules():
+def test_corpus_pairing_rules(reference_root):
     pairs = corpus_pairs(str(REF / "Songs"))
     names = [(os.path.basename(a)[:-4], os.path.basename(b)[:-4]) for a, b in pairs]
     # i<j pairs per piece, _20b excerpts skipped (tests.py:216-220)
@@ -29,7 +29,7 @@ def test_corpus_pairing_rules():
     assert len(set(names)) == len(names)
 
 
-def test_corpus_runner_skips_missing_audio():
+def test_corpus_runner_skips_missing_audio(reference_root):
     # only the chopin _20b wavs exist in the mount and those are excluded
     # from pairing — every pair is skipped, mean is nan, nothing crashes
     runner = CorpusRunner(str(REF / "Songs"), engine="livenote_v2_diff")
@@ -59,7 +59,7 @@ def test_align_pair_diff_engine(chopin_pair):
     assert result.score.pct_off_beats[3] < 25.0
 
 
-def test_cli_score_log(capsys):
+def test_cli_score_log(capsys, reference_root):
     from real_time_audio_sync_tpu.eval.__main__ import main
 
     rc = main([
@@ -88,7 +88,8 @@ def test_align_pair_fused_mode(chopin_pair):
     from real_time_audio_sync_tpu.features.chroma import wav_to_chroma
 
     ref_wav, live_wav = chopin_pair
-    res = align_pair(ref_wav, live_wav, "otw", {"c": 50, "max_run_count": 3}, mode="fused")
+    res = align_pair(ref_wav, live_wav, "otw", {"c": 50, "max_run_count": 3}, mode="fused",
+                     interpret=True)
     assert res.score.pct_off_beats[3] == 0.0
     # matches the XLA engine's set_live path exactly
     eng = OnlineTimeWarping(wav_to_chroma(ref_wav), {"c": 50, "max_run_count": 3})
@@ -108,7 +109,7 @@ def test_live_demo_example_runs(chopin_pair, tmp_path):
          "--live", live_wav, "--fused", "--interpret", "--quiet",
          "--out-dir", str(tmp_path)],
         capture_output=True, text=True, timeout=600,
-        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu", "RTAS_NO_COMPILE_CACHE": "1"},
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "path points" in proc.stdout
@@ -129,7 +130,7 @@ def test_live_demo_wtw_async_engine_runs(chopin_pair, tmp_path):
          "--live", live_wav, "--engine", "wtw_async", "--quiet",
          "--out-dir", str(tmp_path)],
         capture_output=True, text=True, timeout=600,
-        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu", "RTAS_NO_COMPILE_CACHE": "1"},
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "path points" in proc.stdout
@@ -147,7 +148,7 @@ def test_heatmap_example_runs(chopin_pair, tmp_path):
         [sys.executable, "examples/heatmap_overlay.py", "--ref", ref_wav,
          "--live", live_wav, "--out", str(out)],
         capture_output=True, text=True, timeout=600,
-        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu", "RTAS_NO_COMPILE_CACHE": "1"},
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert out.exists() and out.stat().st_size > 10_000
@@ -185,7 +186,7 @@ def test_serving_demo_example_runs(chopin_pair):
          "--live", live_wav, "--streams", "2", "--interpret",
          "--max-frames", "32"],
         capture_output=True, text=True, timeout=600,
-        env={**os.environ, "RTAS_NO_COMPILE_CACHE": "1"},
+        env={**os.environ, "JAX_PLATFORMS": "cpu"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "aggregate RTF" in proc.stdout
@@ -200,7 +201,7 @@ def test_measure_capacity_harness_runs():
     import subprocess
     import sys
 
-    env = {**os.environ, "RTAS_NO_COMPILE_CACHE": "1"}
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     proc = subprocess.run(
         [sys.executable, "examples/measure_capacity.py", "otw", "--b", "2",
          "--hops", "40", "--n-ref", "200", "--interpret"],

@@ -159,21 +159,19 @@ def test_dtw_real_pair_scores(chopin_pair):
 
 
 def test_dtw_backend_validation():
-    """backend='pallas' fails up front with the platform/dtype reason on
-    hosts where Mosaic can't run (CPU), and unknown names are rejected,
-    instead of crashing deep in lowering."""
-    import jax
+    """Offline DTW has one device path, the XLA wavefront: the removed
+    ``backend=`` option is rejected, and the one path matches the oracle."""
     import pytest
 
     from real_time_audio_sync_tpu.models.dtw import DTW
+    from tests.oracle import oracle_dtw
 
     rng = np.random.default_rng(3)
     a, b = rng.random((12, 16)).astype(np.float32), rng.random((12, 20)).astype(np.float32)
-    with pytest.raises(ValueError, match="unknown backend"):
-        DTW(a, b, backend="bogus")
-    if jax.devices()[0].platform == "cpu":
-        with pytest.raises(ValueError, match="unsupported on this platform"):
-            DTW(a, b, backend="pallas")
+    with pytest.raises(TypeError):
+        DTW(a, b, backend="scan")
+    _, _, path = DTW(a, b)
+    np.testing.assert_array_equal(path, oracle_dtw(a.astype(np.float64), b.astype(np.float64))[2])
 
 
 # ---------------------------------------------------------------------------

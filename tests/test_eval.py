@@ -27,7 +27,7 @@ GOLDEN_LOGS = [
 ]
 
 
-def test_ground_truth_csv_loading():
+def test_ground_truth_csv_loading(reference_root):
     gt = GroundTruth.from_csv(str(CHOPIN_REF_CSV))
     assert len(gt.times) == len(gt.beats) > 0
     assert gt.times == sorted(gt.times)
@@ -50,7 +50,7 @@ def test_get_beat_interpolation():
 
 
 @pytest.mark.parametrize("log_rel", GOLDEN_LOGS)
-def test_scorer_reproduces_recorded_field_accuracy(log_rel):
+def test_scorer_reproduces_recorded_field_accuracy(log_rel, reference_root):
     log = parse_field_log(str(REF / log_rel))
     assert log.reference_recording == "Songs/chopin/chopin_rubinstein_20b.wav"
     recorded = parse_summary_percentages(log.summary)
@@ -88,7 +88,7 @@ def test_field_log_roundtrip(tmp_path):
     assert raw.split(b"\r\n")[5] == b"0 1"
 
 
-def test_data_from_file_parity_on_bso_log():
+def test_data_from_file_parity_on_bso_log(reference_root):
     path = path_from_field_log(str(REF / "tests/bso_livenote_test_live.txt"))
     assert len(path) == 10896 - 5
     assert path[0] == (0, 1)

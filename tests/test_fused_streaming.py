@@ -1,5 +1,5 @@
-"""Fused streaming engine (persistent-state Pallas inserts) vs the XLA
-engine — interpret mode on CPU; hardware parity in tests/test_tpu_hardware.py."""
+"""Fused streaming engine (band-kernel inserts with state carried across
+launches) vs the XLA engine, with the kernel in the Pallas interpreter."""
 
 import numpy as np
 import pytest
@@ -8,16 +8,6 @@ from real_time_audio_sync_tpu.models import OnlineTimeWarping
 from real_time_audio_sync_tpu.models.fused_streaming import FusedStreamingEngine
 
 from tests.test_online import _make_pair, _unit_cols
-
-
-@pytest.fixture(autouse=True)
-def _interpret_mode():
-    from jax.experimental.pallas import tpu as pltpu
-
-    ctx = pltpu.force_tpu_interpret_mode()
-    ctx.__enter__()
-    yield
-    ctx.__exit__(None, None, None)
 
 
 PARAMS = {"c": 10, "max_run_count": 3}
@@ -205,135 +195,114 @@ def test_in_flight_probes_are_consistent():
 
 
 # ---------------------------------------------------------------------------
-# Long-reference mode (ops/pallas_otw.py Driver 2b): O(c)-VMEM streaming with
-# HBM ref window, sliding live window and host-accumulated path deltas
+# Long references: the reference far longer than the band, the live history
+# far longer than the ring (c=3: R=16 frames), so every column update reads
+# older frames back from the ring that each launch rewrites
 # ---------------------------------------------------------------------------
 
+LONG = {"c": 3, "max_run_count": 3}
 
-@pytest.mark.parametrize("seed,block,k_block,stack", [
-    (0, 8, 8, 4),   # block streaming + delta folding
-    (1, 1, 8, 64),  # per-frame inserts, unfolded drain
-    (2, 1, 1, 2),   # per-frame engine program
-    (3, 5, 2, 3),   # oversize feeds split across launches
-])
-def test_long_ref_matches_xla_engine(seed, block, k_block, stack, monkeypatch):
-    import real_time_audio_sync_tpu.models.fused_streaming as fs
 
-    monkeypatch.setattr(fs, "_DELTA_STACK", stack)
-    rng = np.random.default_rng(seed)
-    ref, live = _make_pair(rng, n_ref=48, stretch=1.25)
-    xla = OnlineTimeWarping(ref, PARAMS, dtype=np.float32)
+def _long_pair(seed, stretch=1.25):
+    return _make_pair(np.random.default_rng(seed), n_ref=200, stretch=stretch)
+
+
+def _xla_path(ref, live, params=LONG, **kw):
+    xla = OnlineTimeWarping(ref, params, dtype=np.float32, **kw)
     for i in range(live.shape[1]):
         if xla.insert(live[:, i]) == "stop":
             break
+    return xla.path_array
 
-    eng = FusedStreamingEngine(ref, PARAMS, k_block=k_block, interpret=True,
-                               long_ref=True)
-    assert eng.long_ref
+
+@pytest.mark.parametrize("seed,block,k_block", [
+    (0, 8, 8),    # block streaming
+    (1, 1, 8),    # per-frame inserts into an 8-frame program
+    (2, 1, 1),    # per-frame engine program
+    (3, 40, 40),  # launches longer than the ring
+])
+def test_long_ref_matches_xla_engine(seed, block, k_block):
+    ref, live = _long_pair(seed)
+    eng = FusedStreamingEngine(ref, LONG, k_block=k_block, interpret=True)
     for s in range(0, live.shape[1], block):
         eng.insert_block_nowait(live[:, s : s + block])
     eng.flush()
-    np.testing.assert_array_equal(eng.path_array, xla.path_array)
+    np.testing.assert_array_equal(eng.path_array, _xla_path(ref, live))
 
 
 def test_long_ref_feed_and_periodic_drains():
-    """Adaptive feed through the long kernel, with mid-stream path reads
-    (delta drains) that must not lose or duplicate committed points."""
-    rng = np.random.default_rng(7)
-    ref, live = _make_pair(rng, n_ref=48, stretch=1.25)
-    xla = OnlineTimeWarping(ref, PARAMS, dtype=np.float32)
-    for i in range(live.shape[1]):
-        if xla.insert(live[:, i]) == "stop":
-            break
-
-    eng = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True,
-                               long_ref=True)
+    """Adaptive feed with mid-stream path reads, which must not disturb the
+    committed points."""
+    ref, live = _long_pair(7)
+    eng = FusedStreamingEngine(ref, LONG, k_block=8, interpret=True)
     for i in range(live.shape[1]):
         eng.feed(live[:, i])
         if i % 16 == 0:
             eng.flush()
-            _ = eng.path_array  # mid-stream drain
+            _ = eng.path_array  # mid-stream read
     eng.flush()
-    np.testing.assert_array_equal(eng.path_array, xla.path_array)
+    np.testing.assert_array_equal(eng.path_array, _xla_path(ref, live))
 
 
 def test_long_ref_stop_and_freeze():
-    rng = np.random.default_rng(4)
-    ref, live = _make_pair(rng, n_ref=32, stretch=1.0)
-    extra = _unit_cols(rng.random((12, 30)) + 0.05)
+    ref, live = _long_pair(4, stretch=1.0)
+    extra = _unit_cols(np.random.default_rng(4).random((12, 60)) + 0.05)
     live = np.concatenate([live, extra], axis=1)
-
-    xla = OnlineTimeWarping(ref, PARAMS, dtype=np.float32)
-    for i in range(live.shape[1]):
-        if xla.insert(live[:, i]) == "stop":
-            break
-
-    eng = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True,
-                               long_ref=True)
+    eng = FusedStreamingEngine(ref, LONG, k_block=8, interpret=True)
     for s in range(0, live.shape[1], 8):
         eng.insert_block_nowait(live[:, s : s + 8])
-    assert eng.flush() == "stop"
-    assert eng.insert_block_nowait(live[:, :8]) == "stop"
-    np.testing.assert_array_equal(eng.path_array, xla.path_array)
+    status = eng.flush()
+    np.testing.assert_array_equal(eng.path_array, _xla_path(ref, live))
+    if status == "stop":
+        assert eng.insert_block_nowait(live[:, :8]) == "stop"
 
 
 def test_long_ref_checkpoint_resume():
-    """Mid-stream snapshot/restore of the long engine continues bit-exactly
-    (sliding live window + host path travel through the checkpoint)."""
+    """Mid-stream snapshot/restore continues bit-exactly (the live ring,
+    band vectors and path travel through the checkpoint); a snapshot of a
+    different k_block is rejected."""
     from real_time_audio_sync_tpu.utils.checkpoint import (
         load_fused_state,
         save_fused_state,
     )
 
-    rng = np.random.default_rng(9)
-    ref, live = _make_pair(rng, n_ref=48, stretch=1.25)
-    xla = OnlineTimeWarping(ref, PARAMS, dtype=np.float32)
-    for i in range(live.shape[1]):
-        if xla.insert(live[:, i]) == "stop":
-            break
-
+    ref, live = _long_pair(9)
     import tempfile, os
 
-    eng = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True,
-                               long_ref=True)
-    cut = (live.shape[1] // 2) // 8 * 8
+    eng = FusedStreamingEngine(ref, LONG, k_block=8, interpret=True)
+    cut = (live.shape[1] // 2) // 8 * 8 + 3  # mid-launch frame count
     for s in range(0, cut, 8):
-        eng.insert_block_nowait(live[:, s : s + 8])
+        eng.insert_block_nowait(live[:, s : min(s + 8, cut)])
     with tempfile.TemporaryDirectory() as td:
         ck = os.path.join(td, "ck.npz")
         save_fused_state(eng, ck)
-        res = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True,
-                                   long_ref=True)
+        res = FusedStreamingEngine(ref, LONG, k_block=8, interpret=True)
         load_fused_state(res, ck)
         for s in range(cut, live.shape[1], 8):
             res.insert_block_nowait(live[:, s : s + 8])
         res.flush()
-        # mode mismatch is rejected explicitly
-        std = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True,
-                                   long_ref=False)
-        with pytest.raises(ValueError, match="long_ref"):
-            load_fused_state(std, ck)
-    np.testing.assert_array_equal(res.path_array, xla.path_array)
+        other = FusedStreamingEngine(ref, LONG, k_block=4, interpret=True)
+        with pytest.raises(ValueError, match="k_block"):
+            load_fused_state(other, ck)
+    np.testing.assert_array_equal(res.path_array, _xla_path(ref, live))
 
 
 def test_long_ref_livenote_v2_variant():
-    """The long kernel honors the LiveNoteV2 config (monotone path guard +
-    Euclidean chroma-diff cost); skipped appends mean zero-commit launches,
-    which the delta drain must pass over without losing alignment."""
-    rng = np.random.default_rng(5)
-    ref, live = _make_pair(rng, n_ref=40)
+    """LiveNoteV2 config (monotone path guard + Euclidean chroma-diff cost)
+    on a long reference; skipped appends leave launches with no new points."""
+    ref, live = _long_pair(5)
     ref_d = np.clip(np.diff(ref, axis=1), 0, np.inf)
     live_d = np.clip(np.diff(live, axis=1), 0, np.inf)
     from real_time_audio_sync_tpu.models import LiveNoteV2
 
     xla = LiveNoteV2(
-        ref_d, {"search_band_width": 10, "max_run_count": 3}, chroma_diff=True, dtype=np.float32
+        ref_d, {"search_band_width": 3, "max_run_count": 3}, chroma_diff=True, dtype=np.float32
     )
     for i in range(live_d.shape[1]):
         if xla.insert(live_d[:, i]) == "stop":
             break
     eng = FusedStreamingEngine(
-        ref_d, PARAMS, interpret=True, long_ref=True,
+        ref_d, LONG, interpret=True,
         cfg_overrides=dict(sentinel=float("inf"), run_count_init=0, monotone_path=True, euclidean=True),
     )
     for s in range(0, live_d.shape[1], 8):
@@ -342,39 +311,17 @@ def test_long_ref_livenote_v2_variant():
     np.testing.assert_array_equal(eng.path_array, xla.path_array)
 
 
-def test_delta_fold_iter_roundtrip():
-    """fold_delta_tail + iter_delta_rows reconstruct every launch's
-    [status | dx | dy] row in dispatch order, for solo (1-D) and
-    multi-stream (B,1,X) component shapes and any fold boundary."""
-    import jax.numpy as jnp
-
-    from real_time_audio_sync_tpu.models.fused_streaming import (
-        fold_delta_tail,
-        iter_delta_rows,
-    )
-
-    rng = np.random.default_rng(40)
-    d_pad = 5
-
-    def launch(i, shape_prefix=()):
-        st = jnp.asarray(rng.integers(0, 99, size=(*shape_prefix, 8), dtype=np.int32) + 1000 * i)
-        dx = jnp.asarray(rng.integers(0, 99, size=(*shape_prefix, d_pad), dtype=np.int32))
-        dy = jnp.asarray(rng.integers(0, 99, size=(*shape_prefix, d_pad), dtype=np.int32))
-        return st, dx, dy
-
-    for prefix in ((), (3, 1)):  # solo rows / B=3 row-shaped
-        launches = [launch(i, prefix) for i in range(11)]
-        want = [np.concatenate([np.asarray(a) for a in t], axis=-1) for t in launches]
-        deltas = []
-        for t in launches:
-            deltas.append(t)
-            fold_delta_tail(deltas, 4)  # folds at every 4 pending tuples
-        assert any(not isinstance(d, tuple) for d in deltas)  # folding happened
-        got = [row for rows in iter_delta_rows(deltas) for row in rows]
-        assert not deltas  # drained
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
+@pytest.mark.parametrize("exact", [False, True])
+def test_long_ref_exact_chain_variant(exact):
+    """Both chain forms of the kernel stream the XLA engine's path of the
+    same form."""
+    ref, live = _long_pair(12)
+    eng = FusedStreamingEngine(ref, LONG, k_block=8, interpret=True,
+                               cfg_overrides=dict(exact_chain=exact))
+    for s in range(0, live.shape[1], 8):
+        eng.insert_block_nowait(live[:, s : s + 8])
+    eng.flush()
+    np.testing.assert_array_equal(eng.path_array, _xla_path(ref, live, exact_chain=exact))
 
 
 def test_checkpoint_flushes_pending_feed_frames(tmp_path):
@@ -417,19 +364,20 @@ def test_fused_api_interleaving_fuzz(seed, long_ref):
     """Seeded fuzz over random interleavings of the fused engine's API
     (feed / insert_nowait / insert_block_nowait / poll / last_point /
     mid-stream path reads) under maximum harvest pressure: committed paths
-    must equal the XLA engine's synchronous run in both kernel modes."""
+    must equal the XLA engine's synchronous run, with a short and a long
+    live history (``long_ref``: a ring of 16 frames wraps many times)."""
     rng = np.random.default_rng(seed)
     ref, live = _make_pair(rng, n_ref=48, stretch=1.25)
     extra = _unit_cols(rng.random((12, 30)) + 0.05)
     live = np.concatenate([live, extra], axis=1).astype(np.float32)
 
-    sync = OnlineTimeWarping(ref, PARAMS, dtype=np.float32)
+    params = LONG if long_ref else PARAMS
+    sync = OnlineTimeWarping(ref, params, dtype=np.float32)
     for i in range(live.shape[1]):
         if sync.insert(live[:, i]) == "stop":
             break
 
-    eng = FusedStreamingEngine(ref, PARAMS, k_block=4, interpret=True,
-                               long_ref=long_ref)
+    eng = FusedStreamingEngine(ref, params, k_block=4, interpret=True)
     eng.poll_min_interval = 0.0
     i, r = 0, None
     while i < live.shape[1] and r != "stop":
@@ -445,8 +393,8 @@ def test_fused_api_interleaving_fuzz(seed, long_ref):
             r = eng.poll()
         else:
             _ = eng.last_point, eng.last_point_age_frames
-            if long_ref and rng.integers(0, 2):
-                _ = eng.path_array  # mid-stream delta drain
+            if rng.integers(0, 2):
+                _ = eng.path_array  # mid-stream path read
             r = None
     eng.flush()
     np.testing.assert_array_equal(eng.path_array, sync.path_array)
@@ -485,26 +433,23 @@ def test_feed_copies_queued_columns():
     """Regression: under saturation feed()'s column stays QUEUED past the
     call, so a caller reusing one buffer per hop (the natural streaming
     loop) must not mutate the queued entry — feed copies on ingest."""
-    from jax.experimental.pallas import tpu as pltpu
-
     rng = np.random.default_rng(41)
     ref, live = _make_pair(rng, n_ref=40, stretch=1.2)
     cut = min(live.shape[1], 4 * 8 - 1)  # below the liveness backstop
 
-    with pltpu.force_tpu_interpret_mode():
-        fresh = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True)
-        fresh.max_in_flight = 0  # saturate: feed() only queues
-        for i in range(cut):
-            fresh.feed(live[:, i])
-        fresh.flush()
+    fresh = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True)
+    fresh.max_in_flight = 0  # saturate: feed() only queues
+    for i in range(cut):
+        fresh.feed(live[:, i])
+    fresh.flush()
 
-        reused = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True)
-        reused.max_in_flight = 0
-        buf = np.zeros(live.shape[0], np.float32)
-        for i in range(cut):
-            buf[:] = live[:, i]  # caller reuses ONE buffer per hop
-            reused.feed(buf)
-        buf[:] = -1.0  # and clobbers it after the last hop
-        reused.flush()
+    reused = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True)
+    reused.max_in_flight = 0
+    buf = np.zeros(live.shape[0], np.float32)
+    for i in range(cut):
+        buf[:] = live[:, i]  # caller reuses ONE buffer per hop
+        reused.feed(buf)
+    buf[:] = -1.0  # and clobbers it after the last hop
+    reused.flush()
 
     assert [tuple(p) for p in reused.path] == [tuple(p) for p in fresh.path]

@@ -113,15 +113,13 @@ def test_config_sweep_matches_oracle(c, mrc):
             break
     assert [tuple(p) for p in engine.path] == [tuple(p) for p in oracle.path]
 
-    # the fused Pallas kernel (interpret mode) under the same config
-    from jax.experimental.pallas import tpu as pltpu
-
+    # the band kernel (Pallas interpreter) under the same config
     from real_time_audio_sync_tpu.ops.pallas_otw import pallas_set_live
 
     batch = OnlineTimeWarping(ref, {"c": c, "max_run_count": mrc}, dtype=np.float32)
     batch.set_live(live)
-    with pltpu.force_tpu_interpret_mode():
-        path, t, j, stopped = pallas_set_live(ref, live, {"c": c, "max_run_count": mrc})
+    path, t, j, stopped = pallas_set_live(ref, live, {"c": c, "max_run_count": mrc},
+                                          interpret=True)
     np.testing.assert_array_equal(path, batch.path_array)
 
 
@@ -261,8 +259,8 @@ def test_insert_block_equals_sequential_inserts(block):
 
 def test_dense_engine_rejects_hour_scale_reference():
     """The dense (2N, N) accumulator cannot exist at hour scale; the XLA
-    engine must say so helpfully instead of OOMing (the banded engines are
-    the supported path — FusedStreamingEngine long mode, AsyncWTW)."""
+    engine must say so helpfully instead of OOMing (the band kernel is the
+    supported path — FusedStreamingEngine, AsyncWTW)."""
     from real_time_audio_sync_tpu.models import OnlineTimeWarping
 
     ref = np.zeros((12, 40_000), np.float32)
@@ -346,7 +344,7 @@ def test_streaming_api_interleaving_fuzz(name, cls, kw, seed):
 
 class _GatedStatus:
     """Fake status handle: is_ready() immediately, but the actual READ
-    (np.asarray) blocks on an event — models the relay round-trip that the
+    (np.asarray) blocks on an event — models the device→host read that the
     background harvester performs off-thread."""
 
     def __init__(self, vec, gate=None):

@@ -188,16 +188,19 @@ def test_multistream_mesh_requires_divisible_batch():
 
 
 # ---------------------------------------------------------------------------
-# Fused (Pallas) multi-stream serving — O(c²) banded state per stream
+# Fused multi-stream serving — the band kernel, O(c) state per stream, in the
+# Pallas interpreter
 # ---------------------------------------------------------------------------
 
 FMS_PARAMS = {"c": 10, "max_run_count": 3}
+# long live histories: c=3 gives a 16-frame ring that wraps many times
+LONG = {"c": 3, "max_run_count": 3}
 
 
-def _solo_fused_path(ref, live):
+def _solo_fused_path(ref, live, params=FMS_PARAMS):
     from real_time_audio_sync_tpu.models.fused_streaming import FusedStreamingEngine
 
-    e = FusedStreamingEngine(ref, FMS_PARAMS, k_block=8, interpret=True)
+    e = FusedStreamingEngine(ref, params, k_block=8, interpret=True)
     for i in range(live.shape[1]):
         if e.feed(live[:, i]) == "stop":
             break
@@ -232,29 +235,26 @@ def test_fused_multistream_matches_solo_mixed_refs():
 
 
 def test_fused_multistream_default_is_windowed_kernel():
-    """The serving default is the windowed-state kernel at EVERY scale
-    (round-5 measurement: the whole-buffer layout's per-dispatch device
-    time grows as B·N — 4.9x vs 69x RT/stream at B=256, N=1900 — and it
-    stops compiling above N≈3800 at B=256).  Committed paths must be
-    bit-equal between the two kernels."""
+    """One kernel, two reference layouts: a shared reference (one padded
+    copy read by every program) and per-stream references commit bit-equal
+    paths for the same streams."""
     from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower
 
     rng = np.random.default_rng(33)
     ref, live = _make_pair(rng, n_ref=40, stretch=1.1)
 
-    def run(**kw):
-        fms = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=2,
-                                       k_block=8, interpret=True, **kw)
+    def run(ref_arg, **kw):
+        fms = FusedMultiStreamFollower(ref_arg, FMS_PARAMS, k_block=8, interpret=True, **kw)
         for t in range(live.shape[1]):
             fms.feed(np.repeat(live[None, :, t], 2, axis=0))
         fms.flush()
         return fms, fms.paths()
 
-    default_fms, default_paths = run()
-    assert default_fms.long_ref  # windowed-state kernel engaged by default
-    whole_fms, whole_paths = run(long_ref=False)
-    assert not whole_fms.long_ref
-    for pd, pw in zip(default_paths, whole_paths):
+    shared_fms, shared_paths = run(ref, n_streams=2)
+    assert shared_fms.shared_ref and shared_fms._ref_dev.shape[0] == 1
+    own_fms, own_paths = run([ref, ref])
+    assert not own_fms.shared_ref and own_fms._ref_dev.shape[0] == 2
+    for pd, pw in zip(shared_paths, own_paths):
         np.testing.assert_array_equal(pd, pw)
 
 
@@ -322,8 +322,8 @@ def test_fused_multistream_stop_and_freeze():
 
 
 def test_fused_multistream_sharded_over_mesh_matches_solo():
-    """Stream axis sharded over the 8-virtual-device mesh via shard_map (the
-    Pallas grid runs B/8 steps per chip; zero collectives)."""
+    """Stream axis sharded over the 8-virtual-device mesh via shard_map
+    (each device runs B/8 programs; zero collectives)."""
     from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower, corpus_mesh
 
     rng = np.random.default_rng(3)
@@ -341,7 +341,7 @@ def test_fused_multistream_sharded_over_mesh_matches_solo():
 
 
 def test_batched_set_live_banded_matches_dense():
-    """The banded (Pallas grid) corpus backend commits exactly the dense
+    """The banded (band kernel) corpus backend commits exactly the dense
     XLA scan's paths; dense stays available as the debug/f64 artifact."""
     from real_time_audio_sync_tpu.parallel import batched_set_live, pad_pairs
 
@@ -349,7 +349,7 @@ def test_batched_set_live_banded_matches_dense():
     pairs = [_make_pair(rng, n_ref=24 + 4 * i, stretch=1.0 + 0.1 * i) for i in range(3)]
     r, l, rl, ll = pad_pairs([p[0] for p in pairs], [p[1] for p in pairs])
     params = {"c": 8, "max_run_count": 3}
-    banded, mean_b = batched_set_live(r, l, rl, ll, params, backend="banded")
+    banded, mean_b = batched_set_live(r, l, rl, ll, params, backend="banded", interpret=True)
     dense, mean_d = batched_set_live(r, l, rl, ll, params, backend="dense")
     for pb, pd in zip(banded, dense):
         np.testing.assert_array_equal(np.asarray(pb), np.asarray(pd))
@@ -363,32 +363,32 @@ def test_batched_set_live_banded_sharded_over_mesh():
     pairs = [_make_pair(rng, n_ref=24, stretch=1.2) for _ in range(8)]
     r, l, rl, ll = pad_pairs([p[0] for p in pairs], [p[1] for p in pairs])
     params = {"c": 8, "max_run_count": 3}
-    solo, _ = batched_set_live(r, l, rl, ll, params, backend="banded")
+    solo, _ = batched_set_live(r, l, rl, ll, params, backend="banded", interpret=True)
     mesh = corpus_mesh()
-    sharded, mean_len = batched_set_live(r, l, rl, ll, params, mesh=mesh, backend="banded")
+    sharded, mean_len = batched_set_live(r, l, rl, ll, params, mesh=mesh, backend="banded",
+                                         interpret=True)
     for ps, pm in zip(solo, sharded):
         np.testing.assert_array_equal(np.asarray(ps), np.asarray(pm))
     assert float(mean_len) > 0
 
 
 # ---------------------------------------------------------------------------
-# Long-reference multi-stream serving (grid over Driver 2b's O(c)-VMEM body)
+# Long references and live histories: the ring (16 frames at c=3) wraps
+# many times per stream
 # ---------------------------------------------------------------------------
 
 
 def test_fused_multistream_long_ref_mixed_refs():
-    """Long-mode serving: B streams against different (padded) references
-    commit exactly the solo fused engine's paths via host-drained delta
-    rows, including per-stream stop divergence."""
+    """B streams against different (padded) references far longer than the
+    band commit exactly the solo engine's paths, including per-stream stop
+    divergence and a mid-stream path read."""
     from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower
 
     rng = np.random.default_rng(21)
-    pairs = [_make_pair(rng, n_ref=32 + 8 * i, stretch=1.0 + 0.2 * i) for i in range(3)]
-    solo = [_solo_fused_path(r, l) for r, l in pairs]
+    pairs = [_make_pair(rng, n_ref=96 + 32 * i, stretch=1.0 + 0.2 * i) for i in range(3)]
+    solo = [_solo_fused_path(r, l, LONG) for r, l in pairs]
 
-    fms = FusedMultiStreamFollower([r for r, _ in pairs], FMS_PARAMS,
-                                   k_block=8, interpret=True, long_ref=True)
-    assert fms.long_ref
+    fms = FusedMultiStreamFollower([r for r, _ in pairs], LONG, k_block=8, interpret=True)
     tmax = max(l.shape[1] for _, l in pairs)
     for t in range(tmax):
         cols = np.zeros((3, 12), np.float32)
@@ -405,17 +405,16 @@ def test_fused_multistream_long_ref_mixed_refs():
 
 
 def test_fused_multistream_long_ref_skewed_feeds():
-    """Long-mode shared-reference serving with a half-rate stream: inactive
-    (active=False) slots mid-block leave that stream's window state frozen,
-    and committed paths are feed-skew independent and equal to solo."""
+    """Shared long reference with a half-rate stream: a stream with fewer
+    columns in a launch reads more of its frames back from its ring, and
+    committed paths are feed-skew independent and equal to solo."""
     from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower
 
     rng = np.random.default_rng(23)
-    ref, live = _make_pair(rng, n_ref=32, stretch=1.2)
-    solo = _solo_fused_path(ref, live)
+    ref, live = _make_pair(rng, n_ref=128, stretch=1.2)
+    solo = _solo_fused_path(ref, live, LONG)
 
-    fms = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=2, k_block=8,
-                                   interpret=True, long_ref=True)
+    fms = FusedMultiStreamFollower(ref, LONG, n_streams=2, k_block=8, interpret=True)
     t2 = 0
     for t in range(live.shape[1] * 2):
         cols = np.zeros((2, 12), np.float32)
@@ -431,34 +430,37 @@ def test_fused_multistream_long_ref_skewed_feeds():
         np.testing.assert_array_equal(p, solo)
 
 
-def test_fused_multistream_long_ref_folding(monkeypatch):
-    """Delta folding (stacked device-side reads) preserves exact paths."""
+def test_fused_multistream_long_ref_folding():
+    """Frequent mid-stream path reads (every 3 launches' worth of frames)
+    leave the committed paths exact."""
     from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower
 
     rng = np.random.default_rng(22)
-    ref, live = _make_pair(rng, n_ref=32, stretch=1.2)
-    solo = _solo_fused_path(ref, live)
+    ref, live = _make_pair(rng, n_ref=128, stretch=1.2)
+    solo = _solo_fused_path(ref, live, LONG)
 
-    fms = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=2, k_block=8,
-                                   interpret=True, long_ref=True)
-    fms._delta_stack = 3  # fold every 3 launches
+    fms = FusedMultiStreamFollower(ref, LONG, n_streams=2, k_block=8, interpret=True)
     for t in range(live.shape[1]):
         fms.feed(np.repeat(live[None, :, t], 2, axis=0))
+        if t % 24 == 0:
+            fms.flush()
+            _ = fms.paths()
     fms.flush()
     for p in fms.paths():
         np.testing.assert_array_equal(p, solo)
 
 
 def test_fused_multistream_long_ref_over_mesh():
-    """Long mode sharded over the 8-virtual-device mesh via shard_map."""
+    """A long reference served over the 8-virtual-device mesh via
+    shard_map."""
     from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower, corpus_mesh
 
     rng = np.random.default_rng(23)
-    ref, live = _make_pair(rng, n_ref=32, stretch=1.1)
-    solo = _solo_fused_path(ref, live)
+    ref, live = _make_pair(rng, n_ref=96, stretch=1.1)
+    solo = _solo_fused_path(ref, live, LONG)
     mesh = corpus_mesh()
-    fms = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=8, k_block=8,
-                                   interpret=True, mesh=mesh, long_ref=True)
+    fms = FusedMultiStreamFollower(ref, LONG, n_streams=8, k_block=8,
+                                   interpret=True, mesh=mesh)
     for t in range(live.shape[1]):
         fms.feed(np.repeat(live[None, :, t], 8, axis=0))
     fms.flush()
@@ -467,8 +469,9 @@ def test_fused_multistream_long_ref_over_mesh():
 
 
 def test_fused_multistream_long_ref_checkpoint():
-    """Mid-stream snapshot/restore of the long-mode follower continues
-    bit-exactly; mode mismatch on load is rejected."""
+    """Mid-stream snapshot/restore of the follower continues bit-exactly
+    (rings, band vectors and paths travel through the checkpoint); a
+    k_block mismatch on load is rejected."""
     import os
     import tempfile
 
@@ -479,27 +482,24 @@ def test_fused_multistream_long_ref_checkpoint():
     )
 
     rng = np.random.default_rng(24)
-    ref, live = _make_pair(rng, n_ref=32, stretch=1.2)
-    solo = _solo_fused_path(ref, live)
+    ref, live = _make_pair(rng, n_ref=96, stretch=1.2)
+    solo = _solo_fused_path(ref, live, LONG)
 
-    fms = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=2, k_block=8,
-                                   interpret=True, long_ref=True)
+    fms = FusedMultiStreamFollower(ref, LONG, n_streams=2, k_block=8, interpret=True)
     cut = live.shape[1] // 2
     for t in range(cut):
         fms.feed(np.repeat(live[None, :, t], 2, axis=0))
     with tempfile.TemporaryDirectory() as td:
         ck = os.path.join(td, "fms.npz")
         save_multi_stream_state(fms, ck)
-        res = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=2, k_block=8,
-                                       interpret=True, long_ref=True)
+        res = FusedMultiStreamFollower(ref, LONG, n_streams=2, k_block=8, interpret=True)
         load_multi_stream_state(res, ck)
         for t in range(cut, live.shape[1]):
             res.feed(np.repeat(live[None, :, t], 2, axis=0))
         res.flush()
-        std = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=2, k_block=8,
-                                       interpret=True, long_ref=False)
-        with pytest.raises(ValueError, match="long_ref"):
-            load_multi_stream_state(std, ck)
+        other = FusedMultiStreamFollower(ref, LONG, n_streams=2, k_block=4, interpret=True)
+        with pytest.raises(ValueError, match="k_block"):
+            load_multi_stream_state(other, ck)
     for p in res.paths():
         np.testing.assert_array_equal(p, solo)
 
@@ -509,15 +509,15 @@ def test_fused_multistream_api_interleaving_fuzz(seed, long_ref):
     """Seeded fuzz over the serving API: random per-stream feed skew,
     opportunistic poll/stopped/last_points reads and mid-stream paths()
     drains under maximum harvest pressure — committed paths must equal the
-    solo engine's in both kernel modes."""
+    solo engine's, with short and long (``long_ref``) live histories."""
     from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower
 
     rng = np.random.default_rng(seed)
-    ref, live = _make_pair(rng, n_ref=32, stretch=1.2)
-    solo = _solo_fused_path(ref, live)
+    params = LONG if long_ref else FMS_PARAMS
+    ref, live = _make_pair(rng, n_ref=64 if long_ref else 32, stretch=1.2)
+    solo = _solo_fused_path(ref, live, params)
 
-    fms = FusedMultiStreamFollower(ref, FMS_PARAMS, n_streams=3, k_block=8,
-                                   interpret=True, long_ref=long_ref)
+    fms = FusedMultiStreamFollower(ref, params, n_streams=3, k_block=8, interpret=True)
     fms.poll_min_interval = 0.0
     ptrs = [0, 0, 0]
     while min(ptrs) < live.shape[1]:
@@ -534,7 +534,7 @@ def test_fused_multistream_api_interleaving_fuzz(seed, long_ref):
         elif op == 1:
             _ = fms.last_points
         elif op == 2 and rng.integers(0, 4) == 0:
-            _ = fms.paths()  # mid-stream drain (long mode: delta fold)
+            _ = fms.paths()  # mid-stream path read
     fms.flush()
     for p in fms.paths():
         np.testing.assert_array_equal(p, solo)
@@ -597,24 +597,23 @@ def test_multistream_consume_is_monotone_per_stream():
     assert tuple(fms._last_points[1]) == (3, 6, 5)  # advanced row-wise
 
 
-def test_batched_set_live_banded_delegates_long_pairs(monkeypatch):
-    """Hour-scale corpus batches must not reach the whole-sequence batched
-    kernel (its VMEM/SMEM buffers scale with the padded lengths): the banded
-    backend delegates per pair to pallas_set_live's long-reference engine,
-    with identical committed paths (forced here via the threshold)."""
-    import real_time_audio_sync_tpu.ops.pallas_otw as po
+def test_batched_set_live_banded_delegates_long_pairs():
+    """Long pairs of ragged lengths run in the same single launch as short
+    ones (state is O(c) per pair whatever the length): the banded backend
+    commits the dense scan's paths."""
     from real_time_audio_sync_tpu.parallel import batched_set_live, pad_pairs
 
     rng = np.random.default_rng(21)
-    pairs = [_make_pair(rng, n_ref=24 + 4 * i, stretch=1.0 + 0.15 * i) for i in range(2)]
+    pairs = [_make_pair(rng, n_ref=96 + 40 * i, stretch=1.0 + 0.15 * i) for i in range(2)]
     r, l, rl, ll = pad_pairs([p[0] for p in pairs], [p[1] for p in pairs])
-    params = {"c": 8, "max_run_count": 3}
-    direct, mean_d = batched_set_live(r, l, rl, ll, params, backend="banded")
-    monkeypatch.setattr(po, "_SET_LIVE_LONG_N", 0)
-    delegated, mean_l = batched_set_live(r, l, rl, ll, params, backend="banded")
-    for pd, pg in zip(direct, delegated):
+    banded, mean_b = batched_set_live(r, l, rl, ll, LONG, backend="banded", interpret=True)
+    dense, mean_d = batched_set_live(r, l, rl, ll, LONG, backend="dense")
+    for pd, pg in zip(dense, banded):
         np.testing.assert_array_equal(np.asarray(pd), np.asarray(pg))
-    assert abs(float(mean_d) - float(mean_l)) < 1e-6
+    assert abs(float(mean_d) - float(mean_b)) < 1e-6
+
+    with pytest.raises(RuntimeError, match="interpret=True"):
+        batched_set_live(r, l, rl, ll, LONG, backend="banded")
 
 
 def test_multistream_feed_copies_queued_columns():

@@ -349,9 +349,9 @@ def test_display_widgets():
 
 
 def test_wtw_follower_fused_engine(chopin_pair, tmp_path):
-    """engine='wtw_fused' (the persistent-state Pallas kernel) through the
+    """engine='wtw_async' (the device-resident float32 stepper) through the
     live follower: identical committed path to the host engine, positions
-    surfaced from the polled status vector (interpret mode on CPU)."""
+    surfaced from the polled status vector."""
     import time
 
     from real_time_audio_sync_tpu.streaming.runtime import WTWFollower
@@ -366,7 +366,7 @@ def test_wtw_follower_fused_engine(chopin_pair, tmp_path):
     host.stop()
 
     f = WTWFollower(ref_wav, live_wav, log_dir=str(tmp_path),
-                    engine="wtw_fused", interpret=True)
+                    engine="wtw_async", dtype=np.float32)
     f.dtw.poll_min_interval = 0.02
     f.start()
     bufs = list(SimulatedMic(live_wav, buffer_size=4096))
@@ -380,7 +380,7 @@ def test_wtw_follower_fused_engine(chopin_pair, tmp_path):
         if f.stopped:
             break
     log = f.stop()
-    # f64 host vs f32 fused: same chroma batch shapes per buffer (4096 =
+    # f64 host vs f32 device: same chroma batch shapes per buffer (4096 =
     # fft_len chunks), paths equal on the real pair
     assert [tuple(p) for p in f.path] == [tuple(p) for p in host.path]
     refs = [e.ref_frame for e in events]

@@ -75,8 +75,8 @@ def test_corpus_sweep_synthetic(synthetic_corpus, engine, max_err):
 
 def test_corpus_sweep_fused_mode(synthetic_corpus):
     """The fused fast path through the full corpus flow: every pair aligns
-    via the Pallas set_live kernel and scores in the same tight regime."""
-    runner = CorpusRunner(synthetic_corpus, engine="otw", mode="fused")
+    via the band kernel's set_live and scores in the same tight regime."""
+    runner = CorpusRunner(synthetic_corpus, engine="otw", mode="fused", interpret=True)
     report = runner.evaluate(verbose=False)
     assert len(report.results) == 2 and not report.skipped
     for r in report.results:
@@ -102,29 +102,22 @@ def test_corpus_sweep_fused_wtw_batched(synthetic_corpus):
 
 def test_corpus_sweep_fused_online_batched(synthetic_corpus):
     """Online engines in mode='fused' run the whole sweep as ONE batched
-    Pallas launch (grid over pairs); per-pair paths identical to solo
+    kernel launch (one program per pair); per-pair paths identical to solo
     pallas_set_live alignment."""
-    import contextlib
-
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
     from real_time_audio_sync_tpu.models.online_core import ENGINE_OVERRIDES
     from real_time_audio_sync_tpu.ops.pallas_otw import pallas_set_live
     from real_time_audio_sync_tpu.features.chroma import wav_to_chroma
 
-    runner = CorpusRunner(synthetic_corpus, engine="livenote_v2", mode="fused")
+    runner = CorpusRunner(synthetic_corpus, engine="livenote_v2", mode="fused",
+                          interpret=True)
     report = runner.evaluate(verbose=False)
     assert len(report.results) == 2 and not report.skipped
     for r in report.results:
         ref = np.asarray(wav_to_chroma(r.ref_wav, dtype=np.float32))
         live = np.asarray(wav_to_chroma(r.live_wav, dtype=np.float32))
-        ctx = (pltpu.force_tpu_interpret_mode()  # fresh CM per use
-               if jax.devices()[0].platform == "cpu" else contextlib.nullcontext())
-        with ctx:
-            solo, _, _, _ = pallas_set_live(
-                ref, live, {"c": 50, "max_run_count": 3},
-                **ENGINE_OVERRIDES["livenote_v2"])
+        solo, _, _, _ = pallas_set_live(
+            ref, live, {"c": 50, "max_run_count": 3}, interpret=True,
+            **ENGINE_OVERRIDES["livenote_v2"])
         np.testing.assert_array_equal(np.asarray(r.path), solo)
         assert r.score.pct_off_beats[3] <= 10.0
 
@@ -141,9 +134,9 @@ def test_corpus_fused_mode_rejects_f64(synthetic_corpus):
 
 # ---------------------------------------------------------------------------
 # full-scale corpus (eval/synthetic.FULL_PIECES) — the reference's test_all
-# regime at real corpus scale (round-4 verdict item 6).  The full 8-piece /
-# ~100-minute sweep runs on the chip via examples/full_corpus_eval.py (table
-# pinned in docs/ACCURACY.md); CI pins two multi-minute pieces end-to-end.
+# regime at real corpus scale.  The full 8-piece / ~100-minute sweep runs on
+# the GPU via examples/full_corpus_eval.py (table pinned in
+# docs/ACCURACY.md); CI pins two multi-minute pieces end-to-end.
 # ---------------------------------------------------------------------------
 
 
@@ -175,7 +168,7 @@ def test_full_scale_corpus_sweep(full_scale_pieces):
     """CorpusRunner end-to-end over two multi-minute pieces in the fused
     mode, pinned: the realistic-variation renditions must align with 0%
     of path points >3 s off (the reference regime's headline metric)."""
-    runner = CorpusRunner(full_scale_pieces, engine="otw", mode="fused")
+    runner = CorpusRunner(full_scale_pieces, engine="otw", mode="fused", interpret=True)
     report = runner.evaluate(verbose=False)
     assert len(report.results) == 2 and not report.skipped
     for r in report.results:

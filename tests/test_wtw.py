@@ -244,8 +244,7 @@ def test_async_wtw_stop_parity(wtw_pair):
 
 def test_async_wtw_backend_invariance(wtw_pair):
     """Every window-DP backend (scan / unroll) commits the identical path —
-    the backend only changes how the w x w DP is traced, never its result.
-    (pallas is covered on hardware by tests/test_tpu_hardware.py.)"""
+    the backend only changes how the w x w DP is traced, never its result."""
     from real_time_audio_sync_tpu.models.wtw_async import AsyncWTW
 
     ref_path, live = wtw_pair

@@ -1,18 +1,16 @@
-"""Parity tests for the fused WTW Pallas kernel (ops/pallas_wtw.py) and its
-engines (models/fused_wtw.py, parallel/wtw_serving.FusedMultiStreamWTW).
-
-All run in Pallas interpreter mode on the CPU platform (conftest); the
-non-interpret hardware run is covered by tests/test_tpu_hardware.py.  The
-parity oracle is the host ``WTW`` engine, itself bit-parity-tested against
-the Python-faithful oracle (tests/test_wtw.py) — reference wtw.py:71-130.
+"""Parity tests for the device-resident WTW engines (models/wtw_async.py
+``AsyncWTW`` and parallel/wtw_serving.py ``MultiStreamWTW``), float32 as
+they run on the GPU.  The parity oracle is the host ``WTW`` engine, itself
+bit-parity-tested against the Python-faithful oracle (tests/test_wtw.py) —
+reference wtw.py:71-130.
 """
 
 import numpy as np
 import pytest
 
-from real_time_audio_sync_tpu.models.fused_wtw import FusedWTW
 from real_time_audio_sync_tpu.models.wtw import WTW
-from real_time_audio_sync_tpu.parallel.wtw_serving import FusedMultiStreamWTW
+from real_time_audio_sync_tpu.models.wtw_async import AsyncWTW
+from real_time_audio_sync_tpu.parallel.wtw_serving import MultiStreamWTW
 from real_time_audio_sync_tpu.utils.wavio import load_wav
 
 WP = {"fft_len": 4096, "hop_size": 2048,
@@ -47,31 +45,31 @@ def _run(engine, chunks):
     return engine
 
 
-def test_fused_wtw_matches_host_synthetic():
+def test_async_wtw_matches_host_synthetic():
     ref, live = _synth()
     chunks = _aligned_chunks(live)
     host = _run(WTW(ref, WP), chunks)
-    fused = _run(FusedWTW(ref, WP, k_block=8, interpret=True), chunks)
+    fused = _run(AsyncWTW(ref, WP, k_block=8), chunks)
     assert fused.path == host.path
     assert fused.pointers == (host.chroma_ptr, host.live_ptr, host.ref_ptr)
 
 
 @pytest.mark.parametrize("k_block", [1, 5])
-def test_fused_wtw_k_block_invariance(k_block):
+def test_async_wtw_k_block_invariance(k_block):
     ref, live = _synth(seed=3, ref_s=12, live_s=8)
     chunks = _aligned_chunks(live)
     host = _run(WTW(ref, WP), chunks)
-    fused = _run(FusedWTW(ref, WP, k_block=k_block, interpret=True), chunks)
+    fused = _run(AsyncWTW(ref, WP, k_block=k_block), chunks)
     assert fused.path == host.path
 
 
-def test_fused_wtw_stop_on_ref_exhaustion():
+def test_async_wtw_stop_on_ref_exhaustion():
     ref, _ = _synth(seed=1, ref_s=8)
     rng = np.random.default_rng(2)
     live = np.tile(ref, 3) + rng.standard_normal(ref.shape[0] * 3).astype(np.float32) * 0.02
     chunks = np.array_split(live, 60)
     host = WTW(ref, WP)
-    fused = FusedWTW(ref, WP, k_block=8, interpret=True)
+    fused = AsyncWTW(ref, WP, k_block=8)
     rh = rf = None
     for ch in chunks:
         if rh != "stop":
@@ -84,7 +82,7 @@ def test_fused_wtw_stop_on_ref_exhaustion():
     assert fused.pointers == (host.chroma_ptr, host.live_ptr, host.ref_ptr)
 
 
-def test_fused_wtw_live_app_window(chopin_pair):
+def test_async_wtw_live_app_window(chopin_pair):
     """w=100 (wtw_live.py:106) on a shortened real stream."""
     ref_wav, live_wav = chopin_pair
     wp2 = {"fft_len": 4096, "hop_size": 2048,
@@ -92,44 +90,47 @@ def test_fused_wtw_live_app_window(chopin_pair):
     lraw, _ = load_wav(live_wav)
     chunks = _aligned_chunks(lraw)[:31]
     host = _run(WTW(ref_wav, wp2), chunks)
-    fused = _run(FusedWTW(ref_wav, wp2, k_block=8, interpret=True), chunks)
+    fused = _run(AsyncWTW(ref_wav, wp2, k_block=8), chunks)
     assert len(host.path) > 0
     assert fused.path == host.path
     assert fused.pointers == (host.chroma_ptr, host.live_ptr, host.ref_ptr)
 
 
-def test_fused_wtw_chopin_pair(chopin_pair):
+def test_async_wtw_chopin_pair(chopin_pair):
     ref_wav, live_wav = chopin_pair
     lraw, _ = load_wav(live_wav)
     chunks = _aligned_chunks(lraw)
     host = _run(WTW(ref_wav, WP), chunks)
-    fused = _run(FusedWTW(ref_wav, WP, k_block=8, interpret=True), chunks)
+    fused = _run(AsyncWTW(ref_wav, WP, k_block=8), chunks)
     assert fused.path == host.path
 
 
-def test_fused_wtw_transfer_dtypes(chopin_pair):
+def test_async_wtw_transfer_dtypes(chopin_pair):
     """int16 spans are path-exact on int16-exact audio; chroma transfer is
     empirically path-equal on the real pair (same contracts as AsyncWTW)."""
     ref_wav, live_wav = chopin_pair
     lraw, _ = load_wav(live_wav)
     lq = np.round(lraw * 32768.0).clip(-32768, 32767) / 32768.0
     chunks = _aligned_chunks(lq)
-    f32 = _run(FusedWTW(ref_wav, WP, k_block=8, interpret=True), chunks)
-    i16 = _run(FusedWTW(ref_wav, WP, k_block=8, transfer_dtype="int16",
-                        interpret=True), chunks)
-    chm = _run(FusedWTW(ref_wav, WP, k_block=8, transfer_dtype="chroma",
-                        interpret=True), chunks)
+    f32 = _run(AsyncWTW(ref_wav, WP, k_block=8), chunks)
+    i16 = _run(AsyncWTW(ref_wav, WP, k_block=8, transfer_dtype="int16"), chunks)
+    chm = _run(AsyncWTW(ref_wav, WP, k_block=8, transfer_dtype="chroma"), chunks)
     assert i16.path == f32.path
     ndiff = sum(1 for a, b in zip(chm.path, f32.path) if a != b)
     assert len(chm.path) == len(f32.path)
     assert ndiff <= max(2, len(f32.path) // 100)
 
 
-def test_fused_wtw_window_too_large_rejected():
-    ref, _ = _synth(seed=4, ref_s=60)
-    wp = dict(WP, dtw_win_size=4096 * 80)  # w = 160 > 128 lanes
-    with pytest.raises(ValueError, match="128-lane"):
-        FusedWTW(ref, wp, interpret=True)
+def test_async_wtw_wide_window():
+    """A wide window (w = 160 frames) runs on the XLA stepper and commits
+    the host engine's path."""
+    ref, live = _synth(seed=4, ref_s=40, live_s=24)
+    wp = dict(WP, dtw_win_size=4096 * 80, dtw_hop_size=2048 * 40)
+    chunks = _aligned_chunks(live)
+    host = _run(WTW(ref, wp), chunks)
+    dev = _run(AsyncWTW(ref, wp, k_block=8), chunks)
+    assert len(host.path) > 0
+    assert dev.path == host.path
 
 
 # ---------------------------------------------------------------------------
@@ -137,16 +138,16 @@ def test_fused_wtw_window_too_large_rejected():
 # ---------------------------------------------------------------------------
 
 
-def test_fused_multi_wtw_matches_solo_mixed_refs():
+def test_multi_wtw_matches_solo_mixed_refs():
     refA, liveA = _synth(seed=0, ref_s=20, live_s=10)
     refB, _ = _synth(seed=5, ref_s=16)
     rng = np.random.default_rng(6)
     liveB = refB[: 22050 * 10].copy()
     liveB += rng.standard_normal(liveB.shape[0]).astype(np.float32) * 0.03
     ca, cb = _aligned_chunks(liveA), _aligned_chunks(liveB)
-    soloA = _run(FusedWTW(refA, WP, k_block=8, interpret=True), ca)
-    soloB = _run(FusedWTW(refB, WP, k_block=8, interpret=True), cb)
-    ms = FusedMultiStreamWTW([refA, refB], WP, k_block=8, interpret=True)
+    soloA = _run(AsyncWTW(refA, WP, k_block=8), ca)
+    soloB = _run(AsyncWTW(refB, WP, k_block=8), cb)
+    ms = MultiStreamWTW([refA, refB], WP, k_block=8, transfer_dtype="float32")
     for a, b in zip(ca, cb):
         ms.insert([a, b])
     ms.flush()
@@ -157,13 +158,13 @@ def test_fused_multi_wtw_matches_solo_mixed_refs():
     assert ms.pointers()[1] == soloB.pointers
 
 
-def test_fused_multi_wtw_feed_skew_invariance():
+def test_multi_wtw_feed_skew_invariance():
     """A stream's committed path must not depend on how the OTHER streams'
     audio arrives (per-stream n_valid masking)."""
     ref, live = _synth(seed=7, ref_s=20, live_s=10)
     chunks = _aligned_chunks(live)
-    solo = _run(FusedWTW(ref, WP, k_block=8, interpret=True), chunks)
-    ms = FusedMultiStreamWTW([ref, ref], WP, k_block=8, interpret=True)
+    solo = _run(AsyncWTW(ref, WP, k_block=8), chunks)
+    ms = MultiStreamWTW([ref, ref], WP, k_block=8, transfer_dtype="float32")
     cat = np.concatenate(chunks)
     pos = 0
     for i, ch in enumerate(chunks):
@@ -178,19 +179,19 @@ def test_fused_multi_wtw_feed_skew_invariance():
     assert ms.paths()[0] == solo.path
 
 
-def test_fused_multi_wtw_on_mesh():
+def test_multi_wtw_on_mesh():
     import jax
     from jax.sharding import Mesh
 
     ref, live = _synth(seed=8, ref_s=16, live_s=8)
     chunks = _aligned_chunks(live)
-    solo = _run(FusedWTW(ref, WP, k_block=8, interpret=True), chunks)
+    solo = _run(AsyncWTW(ref, WP, k_block=8), chunks)
     devs = np.array(jax.devices())
     if devs.size < 8:
         pytest.skip("needs the 8-virtual-device CPU platform")
     mesh = Mesh(devs[:8].reshape(8), ("s",))
-    ms = FusedMultiStreamWTW([ref] * 8, WP, k_block=8, interpret=True,
-                             mesh=mesh)
+    ms = MultiStreamWTW([ref] * 8, WP, k_block=8,
+                        mesh=mesh, transfer_dtype="float32")
     for ch in chunks:
         ms.insert([ch] * 8)
     ms.flush()
@@ -198,28 +199,32 @@ def test_fused_multi_wtw_on_mesh():
         assert p == solo.path
 
 
-def test_fused_wtw_hop_exceeds_window():
-    """ADVICE r4 item 1: dtw_hop_size >= dtw_win_size makes the diagonal
-    fallback advance ref_ptr by hop_frames > w-1 per window; the r_win DMA
-    scratch must cover that advance (wtw_geometry sizes it with
-    max(w-1, hop_frames)) or the in-kernel cost matmul silently reads
-    garbage.  Paths must stay bit-equal to the host engine."""
+def test_async_wtw_hop_exceeds_window():
+    """dtw_hop_size >= dtw_win_size makes the diagonal fallback advance
+    ref_ptr by hop_frames > w-1 per window; the device slices must follow
+    that advance.  Paths must stay bit-equal to the host engine."""
     wp = {"fft_len": 4096, "hop_size": 2048,
           "dtw_win_size": 4096 * 4, "dtw_hop_size": 2048 * 10}
     assert wp["dtw_hop_size"] // 2048 > wp["dtw_win_size"] // 2048 - 1
     ref, live = _synth(seed=5, ref_s=24, live_s=16)
     chunks = _aligned_chunks(live)
     host = _run(WTW(ref, wp), chunks)
-    fused = _run(FusedWTW(ref, wp, k_block=8, interpret=True), chunks)
+    fused = _run(AsyncWTW(ref, wp, k_block=8), chunks)
     assert len(host.path) > 0
     assert fused.path == host.path
     assert fused.pointers == (host.chroma_ptr, host.live_ptr, host.ref_ptr)
 
 
-def test_wtw_geometry_covers_hop_advance():
-    from real_time_audio_sync_tpu.ops.pallas_wtw import wtw_geometry
-
-    w, hop_frames, k_block = 8, 20, 8
-    _, _, _, r_win, _, _ = wtw_geometry(w, hop_frames, k_block)
-    n_w = 1 + -(-k_block // hop_frames)
-    assert r_win >= 128 + n_w * hop_frames + 16
+@pytest.mark.parametrize("backend", ["unroll", "scan"])
+def test_wtw_geometry_covers_hop_advance(backend):
+    """A hop longer than the window (the diagonal fallback advances the
+    reference pointer by more than w-1) under both in-program window DPs:
+    the commit buffer bound holds and paths equal the host engine's."""
+    wp = {"fft_len": 4096, "hop_size": 2048,
+          "dtw_win_size": 4096 * 4, "dtw_hop_size": 2048 * 10}
+    ref, live = _synth(seed=6, ref_s=20, live_s=12)
+    chunks = _aligned_chunks(live)
+    host = _run(WTW(ref, wp), chunks)
+    dev = _run(AsyncWTW(ref, wp, k_block=8, window_backend=backend), chunks)
+    assert dev.path == host.path
+    assert len(dev.path) <= dev._state[0].shape[0]
